@@ -26,8 +26,9 @@
 //   row_marginal     one block per row:        e_i = |exp(lse_j(neg_c_ij + f_i/eps + g_j/eps)) - p_i|
 //   sum_reduce       one block, fixed-order tree over e (no atomics)
 //   emit_plan        T_ij = exp(neg_c_ij + f_i/eps + g_j/eps)
-// Each extern "C" function launches on the caller's stream and returns
-// cudaGetLastError(), so a refused launch surfaces in the wrapper.
+// Each extern "C" function launches exactly one of these kernels on the
+// caller's stream and returns cudaGetLastError(), so a refused launch
+// surfaces in the wrapper and the wrapper counts one launch per call.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -186,15 +187,16 @@ int otf_sinkhorn_update_g(const float* neg_c, const float* f,
   return (int)cudaGetLastError();
 }
 
-int otf_sinkhorn_marginal_err(const float* neg_c, const float* f,
+int otf_sinkhorn_row_marginal(const float* neg_c, const float* f,
                               const float* g, const float* p, float* row_err,
-                              float* err, int n, int m, float eps,
-                              void* stream) {
+                              int n, int m, float eps, void* stream) {
   row_marginal<<<n, kRowThreads, 0, (cudaStream_t)stream>>>(neg_c, f, g, p,
                                                             row_err, m, eps);
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return (int)rc;
-  sum_reduce<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(row_err, err, n);
+  return (int)cudaGetLastError();
+}
+
+int otf_sinkhorn_sum(const float* x, float* out, int n, void* stream) {
+  sum_reduce<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(x, out, n);
   return (int)cudaGetLastError();
 }
 

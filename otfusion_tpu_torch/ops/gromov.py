@@ -1,20 +1,10 @@
 """Entropic Gromov-Wasserstein (port of ``otfusion_tpu.ops.gromov``).
 
-Per label: max-scaled squared-Euclidean self-costs of the centred clouds,
-uniform masked marginals, then the warm-started linearisation loop
-
-  constC = (Cx^2 p) 1^T + 1 (q^T Cy^2),  T_0 = p q^T
-  repeat 8x per check:  M = constC - 2 Cx T Cy^T  (1e30 on padded pairs)
-                        10 warm-started log-Sinkhorn sweeps on M
-                        T = exp((f + g - M) / eps)
-  until the relative ||T - T_prev||_F reaches the threshold, the error
-  stalls (no 0.999x improvement for 25 checks) or the iteration cap.
-
-``gw_solve_plain`` is the batched plain version: it runs all labels in one
-loop and freezes each label once its own condition fails — the semantics
-of the JAX package's ``vmap`` over a ``while_loop`` — so ``n_iters`` match
-label by label. On CUDA tensors ``egw_per_label`` runs kernel K1
-(``ops.gw_kernel``).
+Per label: masked centring, max-scaled squared-Euclidean self-costs of the
+centred clouds and uniform masked marginals; then the warm-started
+linearisation loop of ``ops.gw_kernel`` (kernel K1 on CUDA tensors, its
+batched plain version on CPU tensors); then the final GW cost and the
+row-marginal check.
 """
 
 from __future__ import annotations
@@ -24,15 +14,8 @@ from typing import NamedTuple
 import torch
 
 from otfusion_tpu_torch.ops.costs import pairwise_sq_euclidean, scale_by_max
-from otfusion_tpu_torch.ops.sinkhorn import (
-    _masked_log_weights,
-    f32,
-    log_sinkhorn_sweeps,
-)
-
-_STALL_PATIENCE = 25
-_OUTER_UNROLL = 8
-_BIG = 1e30
+from otfusion_tpu_torch.ops.gw_kernel import const_c, gw_solve, gw_solve_plain
+from otfusion_tpu_torch.ops.sinkhorn import _masked_log_weights, f32
 
 
 class GWResult(NamedTuple):
@@ -44,63 +27,6 @@ class GWResult(NamedTuple):
     linear_converged: torch.Tensor  # final row marginal within threshold
     cost: torch.Tensor             # <M(T), T>
     err: torch.Tensor              # final relative ||T - T_prev||_F
-
-
-def _const_c(cx, cy, p, q):
-    return ((cx * cx) @ p[..., None]) + ((cy * cy) @ q[..., None]).transpose(
-        -1, -2)
-
-
-def gw_solve_plain(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
-                   max_iterations: int = 2000, threshold: float = 1e-3,
-                   inner_sweeps: int = 10):
-    """Solve L entropic-GW problems given max-scaled self-costs cx (L, n, n),
-    cy (L, m, m), marginals p (L, n), q (L, m) (0 on padding) and their
-    masked logs. Returns (T (L, n, m), n_iters (L,) int32, err (L,))."""
-    eps = float(epsilon)
-    thr = f32(threshold)
-    L = cx.shape[0]
-    device = cx.device
-    pair = (p > 0)[:, :, None] & (q > 0)[:, None, :]
-    const_c = _const_c(cx, cy, p, q)
-    cy_t = cy.transpose(-1, -2)
-
-    t = p[:, :, None] * q[:, None, :]
-    f = torch.zeros_like(p)
-    g = torch.zeros_like(q)
-    err = torch.full((L,), float("inf"), device=device)
-    best = torch.full((L,), float("inf"), device=device)
-    it = torch.zeros((L,), dtype=torch.int32, device=device)
-    stall = torch.zeros((L,), dtype=torch.int32, device=device)
-
-    def running():
-        return (it < max_iterations) & (err > thr) & (stall < _STALL_PATIENCE)
-
-    active = running()
-    while bool(active.any()):
-        t_new, f_new, g_new = t, f, g
-        for _ in range(_OUTER_UNROLL):
-            m_cost = const_c - 2.0 * cx @ (t_new @ cy_t)
-            m_cost = torch.where(pair, m_cost, _BIG)
-            f_new, g_new = log_sinkhorn_sweeps(m_cost, log_p, log_q, eps,
-                                               f_new, g_new, inner_sweeps)
-            t_new = torch.exp((f_new[:, :, None] + g_new[:, None, :] - m_cost)
-                              / eps)
-            t_new = torch.where(pair, t_new, 0.0)
-        e = (torch.linalg.vector_norm(t_new - t, dim=(1, 2))
-             / torch.clamp_min(torch.linalg.vector_norm(t_new, dim=(1, 2)),
-                               1e-30))
-        improved = e < 0.999 * best
-        a3 = active[:, None, None]
-        t = torch.where(a3, t_new, t)
-        f = torch.where(active[:, None], f_new, f)
-        g = torch.where(active[:, None], g_new, g)
-        err = torch.where(active, e, err)
-        stall = torch.where(active, torch.where(improved, 0, stall + 1), stall)
-        best = torch.where(active, torch.minimum(best, e), best)
-        it = torch.where(active, it + _OUTER_UNROLL, it)
-        active = running()
-    return t, it, err
 
 
 def _prep(feats: torch.Tensor, mask: torch.Tensor):
@@ -121,8 +47,6 @@ def _prep(feats: torch.Tensor, mask: torch.Tensor):
 
 def _egw(x, y, x_mask, y_mask, *, epsilon, max_iterations, inner_sweeps,
          threshold, sinkhorn_threshold, plain) -> GWResult:
-    from otfusion_tpu_torch.ops.gw_kernel import gw_solve
-
     with torch.no_grad():
         cx, p, log_p = _prep(x, x_mask)
         cy, q, log_q = _prep(y, y_mask)
@@ -131,7 +55,7 @@ def _egw(x, y, x_mask, y_mask, *, epsilon, max_iterations, inner_sweeps,
             cx, cy, log_p, log_q, p, q, epsilon=epsilon,
             max_iterations=max_iterations, threshold=threshold,
             inner_sweeps=inner_sweeps)
-        m_final = _const_c(cx, cy, p, q) - 2.0 * cx @ (t @ cy.transpose(-1, -2))
+        m_final = const_c(cx, cy, p, q) - 2.0 * cx @ (t @ cy.transpose(-1, -2))
         cost = torch.sum(m_final * t, dim=(1, 2))
         row_err = torch.sum(torch.abs(t.sum(dim=2) - p), dim=1)
         return GWResult(
@@ -168,6 +92,16 @@ def egw_per_label(
                 plain=plain)
 
 
+def egw_per_label_kernel(x, y, x_mask, y_mask, **kwargs) -> GWResult:
+    """``egw_per_label`` on CUDA inputs, which solves through kernel K1
+    (the counterpart of ``egw_per_label_pallas``); raises for inputs that
+    are not on a CUDA device."""
+    if not x.is_cuda:
+        raise ValueError(f"egw_per_label_kernel: expected CUDA inputs, got "
+                         f"{x.device}")
+    return egw_per_label(x, y, x_mask, y_mask, **kwargs)
+
+
 def entropic_gw(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -180,7 +114,6 @@ def entropic_gw(
     inner_sweeps: int = 10,
     x_mask: torch.Tensor | None = None,
     y_mask: torch.Tensor | None = None,
-    plain: bool = False,
 ) -> GWResult:
     """Entropic GW between point clouds ``x`` (n, d) and ``y`` (m, d'):
     ``egw_per_label`` on a batch of one label."""
@@ -192,5 +125,5 @@ def entropic_gw(
                max_iterations=max_iterations,
                inner_sweeps=min(inner_sweeps, sinkhorn_max_iterations),
                threshold=threshold, sinkhorn_threshold=sinkhorn_threshold,
-               plain=plain)
+               plain=False)
     return GWResult(*(v[0] for v in res))

@@ -1,18 +1,30 @@
-"""Per-label entropic-GW whole solve — wrapper of kernel K1.
+"""Per-label entropic-GW whole solve — kernel K1 and its plain version.
 
 Counterpart of the Pallas kernel ``otfusion_tpu.experimental.gw_kernel``
-(``gw_solve_pallas`` and ``egw_per_label_pallas``). The CUDA source is
-``csrc/gw.cu``: one thread block per label runs the whole linearisation
-loop with the semantics of ``ops.gromov.gw_solve_plain``, the plain version
-the CPU takes. Caps up to 64 keep their matrices in shared memory; caps up
-to 128 run the same kernel on a device-memory scratch; larger caps raise.
+(``gw_solve_pallas``). Given max-scaled self-costs and masked marginals per
+label (``ops.gromov`` builds them), the warm-started linearisation loop
+
+  constC = (Cx^2 p) 1^T + 1 (q^T Cy^2),  T_0 = p q^T
+  repeat 8x per check:  M = constC - 2 Cx T Cy^T  (1e30 on padded pairs)
+                        10 warm-started log-Sinkhorn sweeps on M
+                        T = exp((f + g - M) / eps)
+  until the relative ||T - T_prev||_F reaches the threshold, the error
+  stalls (no 0.999x improvement for 25 checks) or the iteration cap.
+
+``gw_solve_plain`` is the batched plain version: it runs all labels in one
+loop and freezes each label once its own condition fails — the semantics
+of the JAX package's ``vmap`` over a ``while_loop`` — so ``n_iters`` match
+label by label. ``gw_solve`` takes it for CPU tensors and launches
+``csrc/gw.cu`` for CUDA tensors: one thread block per label runs the whole
+loop. The kernel's cap limits (shared memory up to one cap, a device-memory
+scratch up to another, larger caps refused) are read from the library.
 """
 
 from __future__ import annotations
 
 import torch
 
-from otfusion_tpu_torch.ops.gromov import GWResult, egw_per_label, gw_solve_plain
+from otfusion_tpu_torch.ops.sinkhorn import f32, log_sinkhorn_sweeps
 from otfusion_tpu_torch.utils.cuda_build import (
     LaunchCounter,
     launch,
@@ -21,16 +33,75 @@ from otfusion_tpu_torch.utils.cuda_build import (
 )
 
 COUNTER = LaunchCounter("gw")
-MAX_CAP = 128
-SMEM_MAX_CAP = 64
+_STALL_PATIENCE = 25
+_OUTER_UNROLL = 8
+_BIG = 1e30
+
+
+def const_c(cx, cy, p, q):
+    """(Cx^2 p) 1^T + 1 (q^T Cy^2), batched over labels."""
+    return ((cx * cx) @ p[..., None]) + ((cy * cy) @ q[..., None]).transpose(
+        -1, -2)
+
+
+def gw_solve_plain(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
+                   max_iterations: int = 2000, threshold: float = 1e-3,
+                   inner_sweeps: int = 10):
+    """Solve L entropic-GW problems given max-scaled self-costs cx (L, n, n),
+    cy (L, m, m), marginals p (L, n), q (L, m) (0 on padding) and their
+    masked logs. Returns (T (L, n, m), n_iters (L,) int32, err (L,))."""
+    eps = float(epsilon)
+    thr = f32(threshold)
+    L = cx.shape[0]
+    device = cx.device
+    pair = (p > 0)[:, :, None] & (q > 0)[:, None, :]
+    c0 = const_c(cx, cy, p, q)
+    cy_t = cy.transpose(-1, -2)
+
+    t = p[:, :, None] * q[:, None, :]
+    f = torch.zeros_like(p)
+    g = torch.zeros_like(q)
+    err = torch.full((L,), float("inf"), device=device)
+    best = torch.full((L,), float("inf"), device=device)
+    it = torch.zeros((L,), dtype=torch.int32, device=device)
+    stall = torch.zeros((L,), dtype=torch.int32, device=device)
+
+    def running():
+        return (it < max_iterations) & (err > thr) & (stall < _STALL_PATIENCE)
+
+    active = running()
+    while bool(active.any()):
+        t_new, f_new, g_new = t, f, g
+        for _ in range(_OUTER_UNROLL):
+            m_cost = c0 - 2.0 * cx @ (t_new @ cy_t)
+            m_cost = torch.where(pair, m_cost, _BIG)
+            f_new, g_new = log_sinkhorn_sweeps(m_cost, log_p, log_q, eps,
+                                               f_new, g_new, inner_sweeps)
+            t_new = torch.exp((f_new[:, :, None] + g_new[:, None, :] - m_cost)
+                              / eps)
+            t_new = torch.where(pair, t_new, 0.0)
+        e = (torch.linalg.vector_norm(t_new - t, dim=(1, 2))
+             / torch.clamp_min(torch.linalg.vector_norm(t_new, dim=(1, 2)),
+                               1e-30))
+        improved = e < 0.999 * best
+        a3 = active[:, None, None]
+        t = torch.where(a3, t_new, t)
+        f = torch.where(active[:, None], f_new, f)
+        g = torch.where(active[:, None], g_new, g)
+        err = torch.where(active, e, err)
+        stall = torch.where(active, torch.where(improved, 0, stall + 1), stall)
+        best = torch.where(active, torch.minimum(best, e), best)
+        it = torch.where(active, it + _OUTER_UNROLL, it)
+        active = running()
+    return t, it, err
 
 
 def gw_solve(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
              max_iterations: int = 2000, threshold: float = 1e-3,
              inner_sweeps: int = 10):
     """Solve L entropic-GW problems (arguments and results as
-    ``ops.gromov.gw_solve_plain``; both caps equal). CPU tensors take the
-    plain solver; CUDA tensors launch K1."""
+    ``gw_solve_plain``; both caps equal). CPU tensors take the plain
+    solver; CUDA tensors launch K1."""
     tensors = (cx, cy, log_p, log_q, p, q)
     if all(t.device.type == "cpu" for t in tensors):
         return gw_solve_plain(cx, cy, log_p, log_q, p, q, epsilon=epsilon,
@@ -44,27 +115,20 @@ def gw_solve(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
         if tuple(t.shape) != shape:
             raise ValueError(f"gw_solve: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-    if cap > MAX_CAP:
+    lib = load_library("gw")
+    max_cap = lib.otf_gw_max_cap()
+    if cap > max_cap:
         raise ValueError(f"gw_solve: cap {cap} exceeds the kernel's limit of "
-                         f"{MAX_CAP} samples per label")
+                         f"{max_cap} samples per label")
     device = cx.device
     t_out = torch.empty((L, cap, cap), device=device, dtype=torch.float32)
     iters = torch.empty((L,), device=device, dtype=torch.int32)
     err = torch.empty((L,), device=device, dtype=torch.float32)
     scratch = None
-    if cap > SMEM_MAX_CAP:
+    if cap > lib.otf_gw_smem_max_cap():
         scratch = torch.empty(6 * L * cap * (cap + 1), device=device,
                               dtype=torch.float32)
-    launch(load_library("gw"), "otf_gw_solve", COUNTER, cx, cy, log_p, log_q,
-           p, q, t_out, iters, err, scratch, L, cap, float(epsilon),
-           int(max_iterations), float(threshold), int(inner_sweeps))
+    launch(lib, "otf_gw_solve", COUNTER, cx, cy, log_p, log_q, p, q, t_out,
+           iters, err, scratch, L, cap, float(epsilon), int(max_iterations),
+           float(threshold), int(inner_sweeps))
     return t_out, iters, err
-
-
-def egw_per_label_kernel(x, y, x_mask, y_mask, **kwargs) -> GWResult:
-    """``ops.gromov.egw_per_label`` on CUDA inputs, which solves through
-    ``gw_solve`` (K1); raises for inputs that are not on a CUDA device."""
-    if not x.is_cuda:
-        raise ValueError(f"egw_per_label_kernel: expected CUDA inputs, got "
-                         f"{x.device}")
-    return egw_per_label(x, y, x_mask, y_mask, **kwargs)

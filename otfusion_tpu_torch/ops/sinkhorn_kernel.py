@@ -113,15 +113,16 @@ def update_g(neg_c, f, log_q, eps: float):
 
 def marginal_err(neg_c, f, g, p_w, eps: float):
     """L1 deviation of the plan's row marginal from ``p_w`` (0-d tensor),
-    summed in a fixed order."""
+    summed in a fixed order. Two kernels: per-row errors, then their sum."""
     if _on_cpu(neg_c, f, g, p_w):
         return _plain_marginal_err(neg_c, f, g, p_w, eps)
     n, m = neg_c.shape
     _check_2d(neg_c, (f, n), (g, m), (p_w, n))
     row_err = torch.empty(n, device=neg_c.device, dtype=torch.float32)
     err = torch.empty((), device=neg_c.device, dtype=torch.float32)
-    launch(_lib(), "otf_sinkhorn_marginal_err", COUNTER, neg_c, f, g, p_w,
-           row_err, err, n, m, float(eps))
+    launch(_lib(), "otf_sinkhorn_row_marginal", COUNTER, neg_c, f, g, p_w,
+           row_err, n, m, float(eps))
+    launch(_lib(), "otf_sinkhorn_sum", COUNTER, row_err, err, n)
     return err
 
 

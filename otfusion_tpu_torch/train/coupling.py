@@ -44,20 +44,18 @@ def coupling_pipeline(
     sinkhorn_max_iterations: int = 2000,
     fot_epsilon: float = 5e-3,
     fot_max_iterations: int = 2000,
-    plain: bool = False,
 ):
     """EGW per label -> block-diagonal sample plan -> FOT feature plan.
     Returns (Tv, GWResult, SinkhornResult). The FOT cost
     ``M = constC - 2 X^T Ts Y`` is summed over labels: off-block mass is
-    zero, so the (L*cap, L*cap) block matrix is never built. ``plain=True``
-    runs both solves on their plain versions."""
+    zero, so the (L*cap, L*cap) block matrix is never built. CUDA groups
+    solve on kernels K1 and K2, CPU groups on their plain versions."""
     with torch.no_grad():
         pet_mask = pet_mask.to(torch.bool)
         mri_mask = mri_mask.to(torch.bool)
         gw = egw_per_label(pet_groups, mri_groups, pet_mask, mri_mask,
                            epsilon=epsilon, max_iterations=gw_max_iterations,
-                           sinkhorn_max_iterations=sinkhorn_max_iterations,
-                           plain=plain)
+                           sinkhorn_max_iterations=sinkhorn_max_iterations)
         ts = gw.coupling / torch.clamp_min(torch.sum(gw.coupling), 1e-30)
         x = torch.where(pet_mask[..., None], pet_groups.float(), 0.0)
         y = torch.where(mri_mask[..., None], mri_groups.float(), 0.0)
@@ -68,8 +66,7 @@ def coupling_pipeline(
         cross = torch.einsum("lnd,lnm,lme->de", x, ts, y)
         m = const_c - 2.0 * cross
         fot_res = sinkhorn(m, epsilon=fot_epsilon,
-                           max_iterations=fot_max_iterations, scale_cost=True,
-                           plain=plain)
+                           max_iterations=fot_max_iterations, scale_cost=True)
         return fot_res.coupling, gw, fot_res
 
 

@@ -129,7 +129,8 @@ def _arg(value):
 def launch(lib: ctypes.CDLL, fn_name: str, counter: LaunchCounter,
            *args) -> None:
     """Call ``fn_name`` with ``args`` plus the current CUDA stream; raise on
-    a CUDA error and count the launch. ``argtypes`` are declared from the
+    a CUDA error and count the launch (each C entry point launches exactly
+    one kernel). ``argtypes`` are declared from the
     Python types, so pointers and the stream travel as ``c_void_p``."""
     fn = getattr(lib, fn_name)
     c_args = [_arg(a) for a in args]

@@ -24,7 +24,11 @@ from otfusion_tpu.train.coupling import coupling_pipeline as jax_pipeline
 from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
 from otfusion_tpu_torch.ops.costs import pairwise_sq_euclidean, scale_by_max
 from otfusion_tpu_torch.ops.fot import apply_feature_coupling, fot
-from otfusion_tpu_torch.ops.gromov import egw_per_label, entropic_gw
+from otfusion_tpu_torch.ops.gromov import (
+    egw_per_label,
+    egw_per_label_kernel,
+    entropic_gw,
+)
 from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
 from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_fixed
 from otfusion_tpu_torch.train.coupling import coupling_pipeline, group_and_pad
@@ -200,7 +204,7 @@ def test_gw_kernel_wrapper_uses_plain_solver_on_cpu(rng):
     np.testing.assert_array_equal(a.coupling.numpy(), b.coupling.numpy())
     assert gw_kernel.COUNTER.count == before
     with pytest.raises(ValueError):
-        gw_kernel.egw_per_label_kernel(T(x), T(y), T(mask), T(mask))
+        egw_per_label_kernel(T(x), T(y), T(mask), T(mask))
 
 
 def test_fot_and_apply_feature_coupling_match_jax(rng):
