@@ -7,17 +7,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      TF32 off for the comparison phases;
   2. builds the CUDA kernels of ``otfusion_tpu_torch/csrc`` with ``nvcc``
      (one process per source, in parallel);
-  3. holds kernel K2 (Sinkhorn) against its plain PyTorch version on a
-     2048 x 2048 FOT-shaped cost, to the exit and at 64 fixed iterations;
-  4. holds kernel K1 (per-label GW) against its plain version at 2 labels
-     x cap 64 from 2048-dim features (one label padded to 50 rows), and at
-     cap 128;
+  3. holds kernel K2 (Sinkhorn, one launch per solve) against its plain
+     PyTorch version on a 2048 x 2048 FOT-shaped cost, to the exit and at
+     64 fixed iterations, and times the solve;
+  4. holds kernel K1 (per-label GW, a thread-block cluster per label)
+     against its plain version at 2 labels x cap 64 from 2048-dim features
+     (one label padded to 50 rows), and at cap 128, and times it;
   5. drives the flagship trainer (``python -m
      otfusion_tpu_torch.cli.train_ot_attn``, CLI defaults: depth 101, s2d
      stem, bf16, 128^3, 64 samples per label) for 2 epochs on a synthetic
      ADNI cohort, with the kernels' launch counts zeroed before and read
-     after, and checks its outputs.
+     after (K2 must launch as often as K1: once per coupling), and checks
+     its outputs.
 
+Each kernel's ``bound_ms`` is the least time an H100 could take for the
+work of this run's inputs (``k1_bound``, ``k2_bound``); ``library_ms`` is
+null, since no single PyTorch call computes a Sinkhorn or a GW solve.
 Every check that fails exits non-zero before the last line. The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it is the kernels' JSON summary. ``--kernels-only`` stops
@@ -28,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -58,32 +62,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, runs: int = 20) -> float:
-    """Median of ``runs`` CUDA-event-timed calls (after one warm-up)."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def correlated_groups(rng, L, cap, d):
-    import numpy as np
-
-    z = rng.normal(size=(L, cap, 8))
-    x = z @ rng.normal(size=(8, d)) + 0.05 * rng.normal(size=(L, cap, d))
-    y = z @ rng.normal(size=(8, d)) + 0.05 * rng.normal(size=(L, cap, d))
-    return x.astype(np.float32), y.astype(np.float32)
 
 
 def phase_device():
@@ -117,10 +95,45 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of bytes over the HBM rate and fp32
+    operations over the fp32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_bound(n, m, n_iters, check_every, checked=True):
+    """K2's work at these inputs: 2 passes per iteration (f and g), one per
+    error check, one for the plan, 4 fp32 operations per entry and pass (a
+    dual added, the max subtracted, an exp, a sum); the cost read once and
+    the plan written once."""
+    checks = 1 + (n_iters - 1) // check_every if checked else 0
+    passes = 2 * n_iters + checks + 1
+    return bound(8.0 * n * m, 4.0 * passes * n * m)
+
+
+def k1_bound(L, cap, n_iters, inner_sweeps=10):
+    """K1's work: per micro-step two cap^3 products (2 operations per FMA),
+    2 * inner_sweeps passes and the plan over cap^2 entries at 4 operations
+    per entry; each label for its own micro-step count. Bytes: Cx, Cy read
+    once, T written once."""
+    flops = sum(it * (4.0 * cap ** 3 + 4.0 * (2 * inner_sweeps + 1) * cap ** 2)
+                for it in n_iters)
+    return bound(12.0 * L * cap * cap, flops)
+
+
 def phase_k2():
     import numpy as np
     import torch
 
+    from otfusion_tpu_torch.cli.bench_kernels import correlated_groups, time_ms
+    from otfusion_tpu_torch.ops import sinkhorn_kernel
     from otfusion_tpu_torch.ops.fot import feature_cost
     from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
     from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_fixed
@@ -134,7 +147,9 @@ def phase_k2():
     cost = feature_cost(x, y, ts).contiguous()
     kw = dict(epsilon=5e-3, threshold=1e-3, max_iterations=2000,
               scale_cost=True)
+    before = sinkhorn_kernel.COUNTER.count
     ker = sinkhorn(cost, **kw)
+    per_solve = sinkhorn_kernel.COUNTER.count - before
     ref = sinkhorn(cost, plain=True, **kw)
     torch.cuda.synchronize()
     t_max = float(ref.coupling.max())
@@ -142,14 +157,25 @@ def phase_k2():
     log(f"[k2] to exit: n_iters kernel {ker.n_iters} plain {ref.n_iters}; "
         f"converged {ker.converged}/{ref.converged}; err {ker.err:.3e}/"
         f"{ref.err:.3e}; max|dT| {diff:.3e} = {diff / t_max:.3e} max T; "
-        f"mass {float(ker.coupling.sum()):.6f}")
+        f"mass {float(ker.coupling.sum()):.6f}; launches per solve "
+        f"{per_solve}")
+    check(per_solve == 1, "K2 took more than one launch for a solve")
     check(ker.n_iters == ref.n_iters, "K2 n_iters differ from the plain version")
     check(ker.converged == ref.converged, "K2 converged differs")
     check(diff <= 1e-4 * t_max, "K2 plan differs by more than 1e-4 max T")
     check(ker.err <= 1e-3 and ref.err <= 1e-3,
           "K2 row-marginal L1 errors not within the threshold")
-    ms = time_ms(lambda: sinkhorn(cost, **kw))
-    plain_ms = time_ms(lambda: sinkhorn(cost, plain=True, **kw))
+
+    # The solve alone, on the cost the solver builds (neg_c = -C / eps).
+    n, m = cost.shape
+    neg_c = (-(cost / cost.max()) / 5e-3).contiguous()
+    log_w = torch.full((n,), -float(np.log(n)), device="cuda")
+    p_w = log_w.exp()
+    args = (neg_c, log_w, log_w, p_w, 5e-3)
+    solve_kw = dict(max_iterations=2000, threshold=1e-3, check_every=5)
+    ms = time_ms(lambda: sinkhorn_kernel.solve(*args, **solve_kw))
+    plain_ms = time_ms(lambda: sinkhorn_kernel.solve_plain(*args, **solve_kw))
+    bound_ms, bound_by = k2_bound(n, m, ker.n_iters, 5)
 
     fk = sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64)
     fr = sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64, plain=True)
@@ -158,14 +184,18 @@ def phase_k2():
     log(f"[k2] fixed 64 iterations: max|dT| {fdiff:.3e} = "
         f"{fdiff / fmax:.3e} max T")
     check(fdiff <= 1e-4 * fmax, "K2 fixed-iteration plan differs")
-    fixed_ms = time_ms(lambda: sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64))
-    fixed_plain_ms = time_ms(
-        lambda: sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64, plain=True))
-    log(f"[k2] 2048x2048 to exit ({ker.n_iters} it): kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; fixed 64 it: kernel {fixed_ms:.3f} ms, "
-        f"plain {fixed_plain_ms:.3f} ms (median of 20; "
-        f"{time.perf_counter() - t0:.2f} s)")
+    fixed_ms = time_ms(lambda: sinkhorn_kernel.solve(
+        *args, max_iterations=64, check=False))
+    fixed_plain_ms = time_ms(lambda: sinkhorn_kernel.solve_plain(
+        *args, max_iterations=64, check=False))
+    log(f"[k2] 2048x2048 solve to exit ({ker.n_iters} it): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"fixed 64 it: kernel {fixed_ms:.4f} ms, plain {fixed_plain_ms:.4f} "
+        f"ms, bound {k2_bound(n, m, 64, 1, checked=False)[0]:.4f} ms "
+        f"(median of 20; {time.perf_counter() - t0:.2f} s)")
     return {"max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches_per_solve": per_solve,
             "fixed64_ms": fixed_ms, "fixed64_plain_ms": fixed_plain_ms,
             "fixed64_max_abs_err": fdiff}
 
@@ -173,6 +203,8 @@ def phase_k2():
 def _gw_inputs(cap, pad_rows):
     import numpy as np
     import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import correlated_groups
 
     rng = np.random.default_rng(1)
     x, y = correlated_groups(rng, 2, cap, 2048)
@@ -208,33 +240,44 @@ def _check_gw(tag, ker, ref, mask):
     return diff
 
 
-def phase_k1():
+def _k1_case(cap, pad_rows, runs):
+    """K1 against its plain version at 2 labels x ``cap``; times of the
+    solve alone (on the prepared costs) and of ``egw_per_label``."""
     import torch
 
-    from otfusion_tpu_torch.ops.gromov import egw_per_label
+    from otfusion_tpu_torch.cli.bench_kernels import time_ms
+    from otfusion_tpu_torch.ops import gw_kernel
+    from otfusion_tpu_torch.ops.gromov import _prep, egw_per_label
 
-    t0 = time.perf_counter()
-    x, y, m, mask = _gw_inputs(64, 50)
+    x, y, m, mask = _gw_inputs(cap, pad_rows)
+    before = gw_kernel.COUNTER.count
     ker = egw_per_label(x, y, m, m)
+    per_solve = gw_kernel.COUNTER.count - before
     ref = egw_per_label(x, y, m, m, plain=True)
     torch.cuda.synchronize()
-    diff = _check_gw("L=2 cap=64 d=2048", ker, ref, mask)
-    ms = time_ms(lambda: egw_per_label(x, y, m, m))
-    plain_ms = time_ms(lambda: egw_per_label(x, y, m, m, plain=True))
-    log(f"[k1] cap 64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        "(median of 20, egw_per_label including prep)")
-
-    x, y, m, mask = _gw_inputs(128, None)
-    ker = egw_per_label(x, y, m, m)
-    ref = egw_per_label(x, y, m, m, plain=True)
-    torch.cuda.synchronize()
-    _check_gw("L=2 cap=128 d=2048", ker, ref, mask)
-    ms128 = time_ms(lambda: egw_per_label(x, y, m, m), runs=5)
-    plain128 = time_ms(lambda: egw_per_label(x, y, m, m, plain=True), runs=5)
-    log(f"[k1] cap 128: kernel {ms128:.3f} ms, plain {plain128:.3f} ms "
-        f"(median of 5; phase {time.perf_counter() - t0:.2f} s)")
+    diff = _check_gw(f"L=2 cap={cap} d=2048", ker, ref, mask)
+    check(per_solve == 1, "K1 took more than one launch for a solve")
+    cx, p, log_p = _prep(x, m)
+    cy, q, log_q = _prep(y, m)
+    args = (cx, cy, log_p, log_q, p, q)
+    ms = time_ms(lambda: gw_kernel.gw_solve(*args), runs)
+    plain_ms = time_ms(lambda: gw_kernel.gw_solve_plain(*args), runs)
+    with_prep_ms = time_ms(lambda: egw_per_label(x, y, m, m), runs)
+    bound_ms, bound_by = k1_bound(2, cap, ker.n_iters.tolist())
+    log(f"[k1] cap {cap}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"egw_per_label with prep {with_prep_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}) (median of {runs})")
     return {"max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
-            "cap128_ms": ms128, "cap128_plain_ms": plain128}
+            "with_prep_ms": with_prep_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches_per_solve": per_solve}
+
+
+def phase_k1():
+    t0 = time.perf_counter()
+    k1 = _k1_case(64, 50, 20)
+    k1_128 = _k1_case(128, None, 5)
+    log(f"[k1] phase {time.perf_counter() - t0:.2f} s")
+    return {**k1, "cap128": k1_128}
 
 
 def phase_main_path():
@@ -275,6 +318,8 @@ def phase_main_path():
             f"peak memory {peak:.2f} GiB")
         check(launches["sinkhorn"] > 0, "K2 was not launched by the trainer")
         check(launches["gw"] > 0, "K1 was not launched by the trainer")
+        check(launches["sinkhorn"] == launches["gw"],
+              "K2 did not launch once per coupling, as K1 does")
 
         for name in ("t_feature.npy", "results.txt", "metrics.jsonl",
                      "model_config.json", "best_model/checkpoint.pt",
@@ -325,17 +370,19 @@ def main(argv=None) -> None:
 
     import torch
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_per_solve")
     kernels = [
         {"name": "gw_solve", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/gw.cu",
          "replaces": "otfusion_tpu/experimental/gw_kernel.py:149",
-         "launches": launches["gw"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+         "launches": launches["gw"], **{k: k1[k] for k in keys},
+         "library_ms": None},
         {"name": "sinkhorn", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/sinkhorn.cu",
          "replaces": "otfusion_tpu/experimental/sinkhorn_kernel.py:131",
-         "launches": launches["sinkhorn"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+         "launches": launches["sinkhorn"], **{k: k2[k] for k in keys},
+         "library_ms": None},
     ]
     log(f"[done] {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"kernels": kernels}))

@@ -58,9 +58,8 @@ REPO = Path(__file__).resolve().parents[2]
 # (bucket, name patterns); the first bucket with a pattern in the kernel's
 # name takes it.
 BUCKETS = (
-    ("port_k1", ("gw_solve_kernel",)),
-    ("port_k2", ("row_update_f", "col_update_g", "row_marginal",
-                 "sum_reduce", "emit_plan")),
+    ("port_k1", ("gw_cluster_kernel",)),
+    ("port_k2", ("sinkhorn_solve_kernel",)),
     ("batchnorm", ("batch_norm", "WelfordOps")),
     ("conv_gemm", ("xmma", "gemm", "nvjet", "cutlass", "conv")),
     ("memcpy", ("Memcpy", "Memset")),

@@ -15,12 +15,15 @@ label (``ops.gromov`` builds them), the warm-started linearisation loop
 loop and freezes each label once its own condition fails — the semantics
 of the JAX package's ``vmap`` over a ``while_loop`` — so ``n_iters`` match
 label by label. ``gw_solve`` takes it for CPU tensors and launches
-``csrc/gw.cu`` for CUDA tensors: one thread block per label runs the whole
-loop. The kernel's cap limits (shared memory up to one cap, a device-memory
-scratch up to another, larger caps refused) are read from the library.
+``csrc/gw.cu`` for CUDA tensors: one thread-block cluster per label runs
+the whole loop in shared memory. ``gw_layout`` is the launch's pure-Python
+layout (rows per block, shared bytes per block); the cluster size per cap
+is a constant of ``gw.cu``, read from the library.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +39,47 @@ COUNTER = LaunchCounter("gw")
 _STALL_PATIENCE = 25
 _OUTER_UNROLL = 8
 _BIG = 1e30
+MAX_CAP = 128         # csrc/gw.cu: kMaxCap
+CLUSTER_SIZES = (1, 2, 4, 8)
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
+_WARPS = 16           # csrc/gw.cu: kThreads / 32
+_MAX_ROWS_PER_WARP = 4
+
+
+class GWLayout(NamedTuple):
+    """How K1 cuts one label: ``cluster`` blocks of at most ``rows`` rows
+    each (a block past the last row owns none), ``smem_bytes`` of dynamic
+    shared memory per block."""
+
+    cluster: int
+    rows: int
+    smem_bytes: int
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def gw_layout(cap: int, cluster: int) -> GWLayout:
+    """Layout of a K1 launch at ``cap`` with ``cluster`` blocks per label;
+    the same sizes as ``csrc/gw.cu:gw_layout``. Raises where the kernel
+    cannot run: cap above ``MAX_CAP``, more than 4 rows per warp, or more
+    shared memory than a block may use."""
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError(f"gw_solve: cap {cap} exceeds the kernel's limit of "
+                         f"{MAX_CAP} samples per label")
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"gw_solve: cluster size {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    rows = -(-cap // cluster)
+    floats = (2 * _round4(cap * cap) + 2 * _round4(rows * cap)
+              + 2 * _round4(_WARPS * cap) + 2 * _round4(2 * cap)
+              + 6 * _round4(cap) + 2 * _round4(rows)
+              + _round4(2 * _WARPS + 2))
+    if rows > _WARPS * _MAX_ROWS_PER_WARP or 4 * floats > SMEM_LIMIT:
+        raise ValueError(f"gw_solve: cap {cap} does not fit {cluster} "
+                         f"block(s) per label")
+    return GWLayout(cluster, rows, 4 * floats)
 
 
 def const_c(cx, cy, p, q):
@@ -116,19 +160,22 @@ def gw_solve(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
             raise ValueError(f"gw_solve: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
     lib = load_library("gw")
-    max_cap = lib.otf_gw_max_cap()
-    if cap > max_cap:
-        raise ValueError(f"gw_solve: cap {cap} exceeds the kernel's limit of "
-                         f"{max_cap} samples per label")
+    return _launch(lib, cx, cy, log_p, log_q, p, q,
+                   lib.otf_gw_cluster_for_cap(cap), epsilon, max_iterations,
+                   threshold, inner_sweeps)
+
+
+def _launch(lib, cx, cy, log_p, log_q, p, q, cluster, epsilon,
+            max_iterations, threshold, inner_sweeps):
+    """One K1 launch with ``cluster`` blocks per label (``gw_solve`` passes
+    the library's size for the cap; a measurement may pass another)."""
+    L, cap = cx.shape[0], cx.shape[1]
+    gw_layout(cap, cluster)
     device = cx.device
     t_out = torch.empty((L, cap, cap), device=device, dtype=torch.float32)
     iters = torch.empty((L,), device=device, dtype=torch.int32)
     err = torch.empty((L,), device=device, dtype=torch.float32)
-    scratch = None
-    if cap > lib.otf_gw_smem_max_cap():
-        scratch = torch.empty(6 * L * cap * (cap + 1), device=device,
-                              dtype=torch.float32)
     launch(lib, "otf_gw_solve", COUNTER, cx, cy, log_p, log_q, p, q, t_out,
-           iters, err, scratch, L, cap, float(epsilon), int(max_iterations),
+           iters, err, L, cap, cluster, float(epsilon), int(max_iterations),
            float(threshold), int(inner_sweeps))
     return t_out, iters, err

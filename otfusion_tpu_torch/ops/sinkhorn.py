@@ -11,9 +11,9 @@ Semantics kept from the JAX solver:
     check until the error drops to ``threshold`` or ``max_iterations``;
   * no gradient through the solve.
 
-The loop runs on the host and reads the error once per check. Its four
-primitives come from ``ops.sinkhorn_kernel``: the plain PyTorch versions on
-CPU tensors, kernel K2 on CUDA tensors.
+The solve itself is ``ops.sinkhorn_kernel.solve``: on CUDA tensors kernel
+K2 runs it whole, exit included, in one launch; on CPU tensors its plain
+version runs the loop on the host and reads the error once per check.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import torch
 
 from otfusion_tpu_torch.ops import sinkhorn_kernel
 from otfusion_tpu_torch.ops.costs import scale_by_max
-from otfusion_tpu_torch.ops.sinkhorn_kernel import SweepOps
 
 _NEG_INF = -1e30
 
@@ -84,7 +83,7 @@ def log_sinkhorn_sweeps(cost, log_p, log_q, epsilon, f, g, sweeps: int):
 
 def _sinkhorn(cost, p, q, epsilon, max_iterations, threshold, scale_cost,
               row_mask, col_mask, plan_mask, check_every,
-              ops: SweepOps) -> SinkhornResult:
+              plain: bool) -> SinkhornResult:
     cost = cost.detach().to(torch.float32)
     n, m = cost.shape
     device = cost.device
@@ -115,19 +114,10 @@ def _sinkhorn(cost, p, q, epsilon, max_iterations, threshold, scale_cost,
     neg_c = (-cost_scaled / eps).contiguous()
     thr = f32(threshold)
 
-    g = torch.zeros(m, dtype=torch.float32, device=device)
-    f = ops.update_f(neg_c, g, log_p, eps)
-    g = ops.update_g(neg_c, f, log_q, eps)
-    err = float(ops.marginal_err(neg_c, f, g, p_w, eps))
-    n_iters = 1
-    while n_iters < max_iterations and err > thr:
-        for _ in range(check_every):
-            f = ops.update_f(neg_c, g, log_p, eps)
-            g = ops.update_g(neg_c, f, log_q, eps)
-        err = float(ops.marginal_err(neg_c, f, g, p_w, eps))
-        n_iters += check_every
-
-    coupling = ops.plan(neg_c, f, g, eps)
+    run = sinkhorn_kernel.solve_plain if plain else sinkhorn_kernel.solve
+    f, g, coupling, n_iters, err = run(
+        neg_c, log_p, log_q, p_w, eps, max_iterations=max_iterations,
+        threshold=thr, check_every=check_every)
     if pair_mask is not None:
         coupling = torch.where(pair_mask, coupling, 0.0)
         transport_cost = torch.sum(coupling * torch.where(pair_mask, cost, 0.0))
@@ -155,12 +145,11 @@ def sinkhorn(
     """Solve entropic OT ``min_T <C, T> - eps H(T)`` with marginals (p, q).
 
     Arguments as in ``otfusion_tpu.ops.sinkhorn.sinkhorn``. A CUDA ``cost``
-    runs on kernel K2, a CPU ``cost`` on the plain primitives;
-    ``plain=True`` takes the plain primitives on any device (the version
-    the kernel is held against).
+    runs on kernel K2, a CPU ``cost`` on the plain solve; ``plain=True``
+    takes the plain solve on any device (the version the kernel is held
+    against).
     """
-    ops = sinkhorn_kernel.PLAIN if plain else sinkhorn_kernel.KERNEL
     with torch.no_grad():
         return _sinkhorn(cost, p, q, epsilon, max_iterations, threshold,
                          scale_cost, row_mask, col_mask, plan_mask,
-                         check_every, ops)
+                         check_every, plain)

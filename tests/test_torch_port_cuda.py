@@ -3,19 +3,21 @@
 A CUDA kernel has no interpret mode, so these tests need the card: they are
 marked ``cuda`` and skip without one. ``chip_smoke.py`` holds the kernels to
 their plain versions at the main path's shapes; these tests add ragged
-shapes, masks, every cap regime of K1 and the wrappers' refusals. They
-import no JAX, so on a machine with a GPU they run without the repository's
-conftest:
+shapes, masks, both band routes of K2, every cluster size of K1, bitwise
+reruns and the wrappers' refusals. They import no JAX, so on a machine with
+a GPU they run without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
-from otfusion_tpu_torch.ops.gromov import egw_per_label
+from otfusion_tpu_torch.ops.gromov import _prep, egw_per_label
 from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
 from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_fixed
 from otfusion_tpu_torch.utils.cuda_build import load_library
@@ -37,32 +39,32 @@ def _close(out, ref, rel):
     assert diff <= rel * float(ref.abs().max()), (diff, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("n,m", [(1, 1), (37, 45), (100, 33), (257, 1000)])
-def test_sinkhorn_primitives_match_plain(cuda, n, m):
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (37, 45), (100, 33), (257, 1000),
+                                 (3000, 40), (300, 20000)])
+def test_sinkhorn_whole_solve_matches_plain(cuda, n, m):
+    """The whole solve to its exit at ragged shapes; (3000, 40) has bands
+    taller than the 16 rows the column pass keeps in registers, and
+    (300, 20000) does not fit a band in shared memory and takes the
+    device-memory route."""
     rng = np.random.default_rng(n * 1000 + m)
-    eps = 0.05
-    neg_c = torch.from_numpy(-rng.uniform(size=(n, m)).astype(np.float32)
-                             / eps).to(cuda)
-    f = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)).to(cuda)
-    g = torch.from_numpy(rng.normal(0, 0.1, m).astype(np.float32)).to(cuda)
-    log_p = torch.full((n,), -np.log(n), device=cuda)
-    log_q = torch.full((m,), -np.log(m), device=cuda)
-    p = log_p.exp()
-    plain = sinkhorn_kernel.PLAIN
+    cost = torch.from_numpy(rng.uniform(size=(n, m)).astype(np.float32)
+                            ).to(cuda)
+    route = sinkhorn_kernel.sinkhorn_layout(n, m, _sm_count(cuda)).route
+    assert route == ("device" if m == 20000 else "shared")
+    kw = dict(epsilon=0.05, threshold=1e-3, scale_cost=True)
     before = sinkhorn_kernel.COUNTER.count
-    torch.testing.assert_close(sinkhorn_kernel.update_f(neg_c, g, log_p, eps),
-                               plain.update_f(neg_c, g, log_p, eps),
-                               rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(sinkhorn_kernel.update_g(neg_c, f, log_q, eps),
-                               plain.update_g(neg_c, f, log_q, eps),
-                               rtol=1e-5, atol=1e-6)
-    _close(sinkhorn_kernel.plan(neg_c, f, g, eps),
-           plain.plan(neg_c, f, g, eps), 1e-5)
-    torch.testing.assert_close(
-        sinkhorn_kernel.marginal_err(neg_c, f, g, p, eps),
-        plain.marginal_err(neg_c, f, g, p, eps), rtol=1e-4, atol=1e-7)
-    # one count per kernel: f, g, plan, then row marginal + its sum
-    assert sinkhorn_kernel.COUNTER.count == before + 5
+    ker = sinkhorn(cost, **kw)
+    assert sinkhorn_kernel.COUNTER.count == before + 1  # one launch a solve
+    ref = sinkhorn(cost, plain=True, **kw)
+    assert ker.n_iters == ref.n_iters and ker.converged == ref.converged
+    assert ker.err == pytest.approx(ref.err, rel=1e-3, abs=1e-6)
+    _close(ker.coupling, ref.coupling, 1e-4)
+    torch.testing.assert_close(ker.f, ref.f, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.g, ref.g, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -98,11 +100,8 @@ def test_sinkhorn_fixed_matches_plain(cuda):
            1e-4)
 
 
-@pytest.mark.parametrize("cap,valid", [(3, 2), (33, 20), (64, 64), (65, 50),
-                                       (128, 100)])
-def test_gw_kernel_matches_plain(cuda, cap, valid):
-    """Shared-memory caps (<= 64) and device-scratch caps (65..128)."""
-    rng = np.random.default_rng(cap)
+def _gw_groups(cuda, cap, valid, seed=None):
+    rng = np.random.default_rng(cap if seed is None else seed)
     z = rng.normal(size=(2, cap, 4))
     x = z @ rng.normal(size=(4, 24)) + 0.05 * rng.normal(size=(2, cap, 24))
     y = z @ rng.normal(size=(4, 16)) + 0.05 * rng.normal(size=(2, cap, 16))
@@ -111,36 +110,103 @@ def test_gw_kernel_matches_plain(cuda, cap, valid):
     x[1, valid:] = 0.0
     y[1, valid:] = 0.0
     to = lambda a: torch.from_numpy(np.asarray(a)).to(cuda)  # noqa: E731
-    x, y, m = to(x.astype(np.float32)), to(y.astype(np.float32)), to(mask)
+    return to(x.astype(np.float32)), to(y.astype(np.float32)), to(mask)
+
+
+def _check_gw(t_k, it_k, ref, valid):
+    torch.testing.assert_close(t_k, ref.coupling, rtol=1e-3, atol=1e-6)
+    # one convergence check (8 iterations) apart at most, if the order of a
+    # sum flips a check at the threshold
+    assert (it_k - ref.n_iters).abs().max() <= 8
+    assert float(t_k[1, valid:].abs().sum()) == 0.0
+    assert float(t_k[1, :, valid:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("cap,valid", [(1, 1), (3, 2), (33, 20), (64, 64),
+                                       (65, 50), (100, 77), (128, 100)])
+def test_gw_kernel_matches_plain(cuda, cap, valid):
+    """Every register-tile shape of K1, with padding in label 1; at cap 1 and
+    3 some blocks of a cluster own no rows."""
+    x, y, m = _gw_groups(cuda, cap, valid)
     before = gw_kernel.COUNTER.count
     ker = egw_per_label(x, y, m, m)
     assert gw_kernel.COUNTER.count == before + 1
     ref = egw_per_label(x, y, m, m, plain=True)
-    torch.testing.assert_close(ker.coupling, ref.coupling, rtol=1e-3,
-                               atol=1e-6)
-    # one convergence check (8 iterations) apart at most, if the order of a
-    # sum flips a check at the threshold
-    assert (ker.n_iters - ref.n_iters).abs().max() <= 8
-    assert float(ker.coupling[1, valid:].abs().sum()) == 0.0
-    assert float(ker.coupling[1, :, valid:].abs().sum()) == 0.0
+    _check_gw(ker.coupling, ker.n_iters, ref, valid)
+
+
+@pytest.mark.parametrize("cap,cluster", [(64, 1), (64, 2), (64, 4), (64, 8),
+                                         (128, 2), (128, 4), (128, 8)])
+def test_gw_every_cluster_size_matches_plain(cuda, cap, cluster):
+    """Each cluster size the layout admits gives the plain plan (the size
+    the library picks per cap is the fastest of these)."""
+    x, y, m = _gw_groups(cuda, cap, cap - 7, seed=cap + cluster)
+    cx, p, log_p = _prep(x, m)
+    cy, q, log_q = _prep(y, m)
+    t, it, _ = gw_kernel._launch(load_library("gw"), cx, cy, log_p, log_q, p,
+                                 q, cluster, 5e-3, 2000, 1e-3, 10)
+    ref = egw_per_label(x, y, m, m, plain=True)
+    _check_gw(t, it, ref, cap - 7)
+
+
+def test_k1_rerun_bitwise_equal(cuda):
+    """No atomics in any sum: a rerun gives the same bits."""
+    x, y, m = _gw_groups(cuda, 64, 50)
+    a, b = egw_per_label(x, y, m, m), egw_per_label(x, y, m, m)
+    assert torch.equal(a.coupling, b.coupling)
+    assert torch.equal(a.n_iters, b.n_iters) and torch.equal(a.err, b.err)
+
+
+def test_k2_rerun_bitwise_equal(cuda):
+    rng = np.random.default_rng(5)
+    cost = torch.from_numpy(rng.uniform(size=(700, 900)).astype(np.float32)
+                            ).to(cuda)
+    kw = dict(epsilon=5e-3, threshold=1e-3, scale_cost=True)
+    a, b = sinkhorn(cost, **kw), sinkhorn(cost, **kw)
+    assert torch.equal(a.coupling, b.coupling)
+    assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    assert (a.n_iters, a.err) == (b.n_iters, b.err)
+
+
+def test_layouts_match_the_library(cuda):
+    gw = load_library("gw")
+    assert gw.otf_gw_max_cap() == gw_kernel.MAX_CAP
+    for cap in (1, 3, 33, 64, 65, 100, 128):
+        cluster = gw.otf_gw_cluster_for_cap(cap)
+        assert cluster in gw_kernel.CLUSTER_SIZES
+        for c in gw_kernel.CLUSTER_SIZES:
+            try:
+                lay = gw_kernel.gw_layout(cap, c)
+            except ValueError:
+                assert c != cluster
+                continue
+            assert gw.otf_gw_smem_bytes(cap, c) == lay.smem_bytes
+    sk = load_library("sinkhorn")
+    sk.otf_sinkhorn_smem_bytes.restype = ctypes.c_longlong
+    for n, m in ((1, 1), (257, 1000), (2048, 2048), (300, 20000)):
+        lay = sinkhorn_kernel.sinkhorn_layout(n, m, _sm_count(cuda))
+        assert lay.grid <= _sm_count(cuda)
+        assert sk.otf_sinkhorn_smem_bytes(
+            m, lay.rows, int(lay.route == "shared")) == lay.smem_bytes
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     neg_c = torch.zeros((4, 3), device=cuda)
     g = torch.zeros(3, device=cuda)
     log_p = torch.zeros(4, device=cuda)
+
+    def solve(c, lq, lp):
+        return sinkhorn_kernel.solve(c, lp, lq, lp, 0.1, max_iterations=10)
+
     with pytest.raises(ValueError, match="float32"):
-        sinkhorn_kernel.update_f(neg_c.double(), g.double(), log_p.double(),
-                                 0.1)
+        solve(neg_c.double(), g.double(), log_p.double())
     with pytest.raises(ValueError, match="contiguous"):
-        sinkhorn_kernel.update_f(torch.zeros((3, 4), device=cuda).T, g, log_p,
-                                 0.1)
+        solve(torch.zeros((3, 4), device=cuda).T, g, log_p)
     with pytest.raises(ValueError, match="CUDA"):
-        sinkhorn_kernel.update_f(neg_c, g.cpu(), log_p, 0.1)
+        solve(neg_c, g.cpu(), log_p)
     with pytest.raises(ValueError, match="vector of 3"):
-        sinkhorn_kernel.update_f(neg_c, torch.zeros(5, device=cuda), log_p,
-                                 0.1)
-    cap = load_library("gw").otf_gw_max_cap() + 1
+        solve(neg_c, torch.zeros(5, device=cuda), log_p)
+    cap = gw_kernel.MAX_CAP + 1
     c = torch.zeros((1, cap, cap), device=cuda)
     v = torch.zeros((1, cap), device=cuda)
     with pytest.raises(ValueError, match="limit"):

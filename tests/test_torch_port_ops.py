@@ -116,19 +116,23 @@ def test_sinkhorn_fixed_plain_flag_is_the_cpu_path(rng):
 
 
 def test_kernel_wrappers_take_plain_versions_on_cpu(rng):
+    """On CPU tensors ``solve`` is ``solve_plain`` (to the exit and at a
+    fixed count) and launches nothing."""
     neg_c = T(rng.normal(size=(6, 5)).astype(np.float32))
-    f = T(rng.normal(size=6).astype(np.float32))
-    g = T(rng.normal(size=5).astype(np.float32))
+    log_p = torch.full((6,), -float(np.log(6)))
+    log_q = torch.full((5,), -float(np.log(5)))
     before = sinkhorn_kernel.COUNTER.count
-    for kernel_fn, plain_fn, args in (
-        (sinkhorn_kernel.update_f, sinkhorn_kernel.PLAIN.update_f,
-         (neg_c, g, f, 0.1)),
-        (sinkhorn_kernel.update_g, sinkhorn_kernel.PLAIN.update_g,
-         (neg_c, f, g, 0.1)),
-        (sinkhorn_kernel.plan, sinkhorn_kernel.PLAIN.plan, (neg_c, f, g, 0.1)),
-    ):
-        np.testing.assert_array_equal(kernel_fn(*args).numpy(),
-                                      plain_fn(*args).numpy())
+    for kw in (dict(max_iterations=50, threshold=1e-4),
+               dict(max_iterations=7, check=False)):
+        out = sinkhorn_kernel.solve(neg_c, log_p, log_q, log_p.exp(), 0.1,
+                                    **kw)
+        ref = sinkhorn_kernel.solve_plain(neg_c, log_p, log_q, log_p.exp(),
+                                          0.1, **kw)
+        for a, b in zip(out[:3], ref[:3]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert out.n_iters == ref.n_iters
+        np.testing.assert_array_equal(out.err, ref.err)
+    assert out.n_iters == 7  # the fixed count, no check
     # the CPU path launches nothing
     assert sinkhorn_kernel.COUNTER.count == before
 

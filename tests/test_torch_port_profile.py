@@ -10,12 +10,12 @@ from otfusion_tpu_torch.cli import profile_flagship
 
 
 @pytest.mark.parametrize("name,bucket", [
-    ("(anonymous namespace)::gw_solve_kernel(float const*, float const*)",
-     "port_k1"),
-    ("(anonymous namespace)::col_update_g(float const*, float const*)",
-     "port_k2"),
-    ("(anonymous namespace)::sum_reduce(float const*, float*, int)",
-     "port_k2"),
+    ("void (anonymous namespace)::gw_cluster_kernel<1, 2>(float const*, "
+     "float const*)", "port_k1"),
+    ("void (anonymous namespace)::sinkhorn_solve_kernel<true>(float const*, "
+     "float const*)", "port_k2"),
+    ("void (anonymous namespace)::sinkhorn_solve_kernel<false>(float "
+     "const*, float const*)", "port_k2"),
     ("void at::native::reduce_kernel<128, 4, at::native::ReduceOp<float, "
      "at::native::WelfordOps<float, float, int>>>", "batchnorm"),
     ("void at::native::batch_norm_backward_reduce_channels_last_kernel<4>",

@@ -236,8 +236,9 @@ def test_unported_flags_raise(cohort, tmp_path, flags):
 def test_kernel_wrappers_refuse_non_cpu_non_cuda_tensors():
     meta = torch.empty((4, 3), device="meta")
     vec = torch.empty(3, device="meta")
+    row = torch.empty(4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        sinkhorn_kernel.update_f(meta, vec, torch.empty(4, device="meta"), 0.1)
+        sinkhorn_kernel.solve(meta, row, vec, row, 0.1, max_iterations=10)
 
 
 def test_package_imports_no_jax():
