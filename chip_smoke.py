@@ -13,20 +13,33 @@ Run from the repository root: ``python3 chip_smoke.py``. It
   4. holds kernel K1 (per-label GW, a thread-block cluster per label)
      against its plain version at 2 labels x cap 64 from 2048-dim features
      (one label padded to 50 rows), and at cap 128, and times it;
-  5. drives the flagship trainer (``python -m
-     otfusion_tpu_torch.cli.train_ot_attn``, CLI defaults: depth 101, s2d
-     stem, bf16, 128^3, 64 samples per label) for 2 epochs on a synthetic
-     ADNI cohort, with the kernels' launch counts zeroed before and read
-     after (K2 must launch as often as K1: once per coupling), and checks
-     its outputs.
+  5. holds K2 at the base trainer's in-step inputs (FOT cost of 8 and of 4
+     rows of 2048-dim features, eps 1e-3) against its plain version, and
+     times it;
+  6. drives every trainer through its CLI on one synthetic ADNI cohort,
+     each with the kernels' launch counts zeroed just before and read just
+     after, and checks its outputs:
+       * the flagship (``train_ot_attn``, CLI defaults: depth 101, s2d
+         stem, bf16, 128^3, cap 64) for 2 epochs: K2 launches as often as
+         K1, once per coupling;
+       * the base trainer (``train_mri_pet_ot``, same size) for 2 epochs:
+         K2 once per train step, K1 never; then one full-width base step
+         under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
+         in the step) and K2's device time inside a step;
+       * at depth 18, 64^3, 1 epoch: the base trainer with ``--grad-accum
+         2`` (K2 once per microbatch), ``train_mmfusion`` and
+         ``train_unimodal --grad-accum 2`` (no kernel), and
+         ``train_t1_t2_ot`` on the cohort's folders linked under the T1/T2
+         class names.
 
 Each kernel's ``bound_ms`` is the least time an H100 could take for the
 work of this run's inputs (``k1_bound``, ``k2_bound``); ``library_ms`` is
 null, since no single PyTorch call computes a Sinkhorn or a GW solve.
 Every check that fails exits non-zero before the last line. The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
-the line before it is the kernels' JSON summary. ``--kernels-only`` stops
-after phase 4 and prints no result line.
+the line before it is the kernels' JSON summary (``launches`` counts every
+trainer's launches; K2's ``base_*`` keys are its times at the base inputs,
+B = 8). ``--kernels-only`` stops after phase 5 and prints no result line.
 """
 
 from __future__ import annotations
@@ -151,19 +164,20 @@ def phase_k2():
     ker = sinkhorn(cost, **kw)
     per_solve = sinkhorn_kernel.COUNTER.count - before
     ref = sinkhorn(cost, plain=True, **kw)
-    torch.cuda.synchronize()
+    k_it, r_it, k_err, r_err = (int(ker.n_iters), int(ref.n_iters),
+                                float(ker.err), float(ref.err))
     t_max = float(ref.coupling.max())
     diff = float((ker.coupling - ref.coupling).abs().max())
-    log(f"[k2] to exit: n_iters kernel {ker.n_iters} plain {ref.n_iters}; "
-        f"converged {ker.converged}/{ref.converged}; err {ker.err:.3e}/"
-        f"{ref.err:.3e}; max|dT| {diff:.3e} = {diff / t_max:.3e} max T; "
-        f"mass {float(ker.coupling.sum()):.6f}; launches per solve "
+    log(f"[k2] to exit: n_iters kernel {k_it} plain {r_it}; "
+        f"converged {bool(ker.converged)}/{bool(ref.converged)}; err "
+        f"{k_err:.3e}/{r_err:.3e}; max|dT| {diff:.3e} = {diff / t_max:.3e} "
+        f"max T; mass {float(ker.coupling.sum()):.6f}; launches per solve "
         f"{per_solve}")
     check(per_solve == 1, "K2 took more than one launch for a solve")
-    check(ker.n_iters == ref.n_iters, "K2 n_iters differ from the plain version")
-    check(ker.converged == ref.converged, "K2 converged differs")
+    check(k_it == r_it, "K2 n_iters differ from the plain version")
+    check(bool(ker.converged) == bool(ref.converged), "K2 converged differs")
     check(diff <= 1e-4 * t_max, "K2 plan differs by more than 1e-4 max T")
-    check(ker.err <= 1e-3 and ref.err <= 1e-3,
+    check(k_err <= 1e-3 and r_err <= 1e-3,
           "K2 row-marginal L1 errors not within the threshold")
 
     # The solve alone, on the cost the solver builds (neg_c = -C / eps).
@@ -175,7 +189,7 @@ def phase_k2():
     solve_kw = dict(max_iterations=2000, threshold=1e-3, check_every=5)
     ms = time_ms(lambda: sinkhorn_kernel.solve(*args, **solve_kw))
     plain_ms = time_ms(lambda: sinkhorn_kernel.solve_plain(*args, **solve_kw))
-    bound_ms, bound_by = k2_bound(n, m, ker.n_iters, 5)
+    bound_ms, bound_by = k2_bound(n, m, k_it, 5)
 
     fk = sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64)
     fr = sinkhorn_fixed(cost, epsilon=5e-3, n_iters=64, plain=True)
@@ -188,7 +202,7 @@ def phase_k2():
         *args, max_iterations=64, check=False))
     fixed_plain_ms = time_ms(lambda: sinkhorn_kernel.solve_plain(
         *args, max_iterations=64, check=False))
-    log(f"[k2] 2048x2048 solve to exit ({ker.n_iters} it): kernel {ms:.4f} "
+    log(f"[k2] 2048x2048 solve to exit ({k_it} it): kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
         f"fixed 64 it: kernel {fixed_ms:.4f} ms, plain {fixed_plain_ms:.4f} "
         f"ms, bound {k2_bound(n, m, 64, 1, checked=False)[0]:.4f} ms "
@@ -198,6 +212,77 @@ def phase_k2():
             "launches_per_solve": per_solve,
             "fixed64_ms": fixed_ms, "fixed64_plain_ms": fixed_plain_ms,
             "fixed64_max_abs_err": fdiff}
+
+
+def _k2_base_case(b):
+    """K2 at the base trainer's in-step inputs: FOT cost of two (b, 2048)
+    feature sets under the identity plan eye(b) / b, eps 1e-3, scaled to
+    max 1. Held against the plain solve run for the kernel's own iteration
+    count (the checks do not change the duals), so an exit one check apart
+    does not hide or fake a difference in the plan."""
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import correlated_groups, time_ms
+    from otfusion_tpu_torch.ops import sinkhorn_kernel
+    from otfusion_tpu_torch.ops.fot import feature_cost
+    from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
+
+    x, y = correlated_groups(np.random.default_rng(2), 1, b, 2048)
+    ts = torch.eye(b, device="cuda") / b
+    cost = feature_cost(torch.from_numpy(x[0]).cuda(),
+                        torch.from_numpy(y[0]).cuda(), ts).contiguous()
+    kw = dict(epsilon=1e-3, threshold=1e-3, max_iterations=2000,
+              scale_cost=True)
+    before = sinkhorn_kernel.COUNTER.count
+    ker = sinkhorn(cost, **kw)
+    per_solve = sinkhorn_kernel.COUNTER.count - before
+    ref = sinkhorn(cost, plain=True, **kw)
+    k_it, r_it = int(ker.n_iters), int(ref.n_iters)
+    n, m = cost.shape
+    neg_c = (-(cost / cost.max()) / 1e-3).contiguous()
+    log_w = torch.full((n,), -float(np.log(n)), device="cuda")
+    args = (neg_c, log_w, log_w, log_w.exp(), 1e-3)
+    same_count = sinkhorn_kernel.solve_plain(
+        *args, max_iterations=k_it, check=False).plan
+    t_max = float(same_count.max())
+    diff = float((ker.coupling - same_count).abs().max())
+    exit_diff = float((ker.coupling - ref.coupling).abs().max())
+    log(f"[k2-base] B={b}: n_iters kernel {k_it} plain {r_it}; converged "
+        f"{bool(ker.converged)}/{bool(ref.converged)}; err "
+        f"{float(ker.err):.3e}/{float(ref.err):.3e}; max|dT| at the "
+        f"kernel's count {diff:.3e} = {diff / t_max:.3e} max T (against the "
+        f"plain exit {exit_diff / t_max:.3e}); launches per solve "
+        f"{per_solve}")
+    check(per_solve == 1, f"K2 B={b}: more than one launch for a solve")
+    check(abs(k_it - r_it) <= 5,
+          f"K2 B={b}: n_iters {k_it} and {r_it} more than one check apart")
+    check(bool(ker.converged) and bool(ref.converged),
+          f"K2 B={b}: a solve did not converge")
+    check(diff <= K2_BASE_TOL * t_max,
+          f"K2 B={b}: plan differs by more than {K2_BASE_TOL} max T")
+    solve_kw = dict(max_iterations=2000, threshold=1e-3, check_every=5)
+    ms = time_ms(lambda: sinkhorn_kernel.solve(*args, **solve_kw))
+    plain_ms = time_ms(lambda: sinkhorn_kernel.solve_plain(*args, **solve_kw))
+    bound_ms, bound_by = k2_bound(n, m, k_it, 5)
+    log(f"[k2-base] B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}) (median of 20)")
+    return {"base_ms": ms, "base_plain_ms": plain_ms,
+            "base_bound_ms": bound_ms, "base_n_iters": k_it,
+            "base_plain_n_iters": r_it, "base_max_abs_err": diff}
+
+
+# K2 at eps 1e-3 against the plain solve at the same iteration count,
+# relative to the plan's largest entry.
+K2_BASE_TOL = 1e-4
+
+
+def phase_k2_base():
+    t0 = time.perf_counter()
+    out = _k2_base_case(8)
+    out["b4"] = _k2_base_case(4)
+    log(f"[k2-base] phase {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def _gw_inputs(cap, pad_rows):
@@ -280,79 +365,232 @@ def phase_k1():
     return {**k1, "cap128": k1_128}
 
 
-def phase_main_path():
-    """The flagship trainer through its CLI, in-process, on a synthetic
-    cohort; returns the kernels' launch counts from this run."""
-    import numpy as np
+def _drive(tag, module, argv):
+    """Run ``module.main(argv)`` (a trainer's CLI, in-process) with every
+    kernel's launch count zeroed just before and read just after; returns
+    (result, launches, seconds)."""
     import torch
 
-    from otfusion_tpu_torch.cli import train_ot_attn
-    from otfusion_tpu_torch.data.synthetic import make_synthetic_adni
     from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
 
+    torch.cuda.synchronize()
+    sinkhorn_kernel.COUNTER.reset()
+    gw_kernel.COUNTER.reset()
     t0 = time.perf_counter()
-    # The comparison phases are over: the trainer runs as a user would,
-    # with PyTorch's default precision settings.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
-    with tempfile.TemporaryDirectory(prefix="otf_smoke_") as tmp:
-        data = Path(tmp) / "adni"
-        out = Path(tmp) / "run"
-        make_synthetic_adni(data, n_per_class=96, shape=(64, 64, 64))
-        log(f"[main] synthetic cohort 2 x 96 at 64^3 "
-            f"({time.perf_counter() - t0:.2f} s)")
-        torch.cuda.reset_peak_memory_stats()
-        sinkhorn_kernel.COUNTER.reset()
-        gw_kernel.COUNTER.reset()
-        t1 = time.perf_counter()
-        result = train_ot_attn.main([
-            "--device", "cuda", "--epochs", "2", "--batch-size", "8",
-            "--data-dir", str(data), "--save-path", str(out),
-        ])
-        launches = {"sinkhorn": sinkhorn_kernel.COUNTER.count,
-                    "gw": gw_kernel.COUNTER.count}
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[main] trainer {wall:.2f} s; launches {launches}; "
-            f"peak memory {peak:.2f} GiB")
-        check(launches["sinkhorn"] > 0, "K2 was not launched by the trainer")
-        check(launches["gw"] > 0, "K1 was not launched by the trainer")
-        check(launches["sinkhorn"] == launches["gw"],
-              "K2 did not launch once per coupling, as K1 does")
+    result = module.main(["--device", "cuda", *argv])
+    launches = {"sinkhorn": sinkhorn_kernel.COUNTER.count,
+                "gw": gw_kernel.COUNTER.count}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"[{tag}] trainer {seconds:.2f} s; launches {launches}")
+    return result, launches, seconds
 
-        for name in ("t_feature.npy", "results.txt", "metrics.jsonl",
-                     "model_config.json", "best_model/checkpoint.pt",
-                     "latest/checkpoint.pt"):
-            check((out / name).exists(), f"missing artifact {name}")
-        tv = np.load(out / "t_feature.npy")
-        check(tv.shape == (2048, 2048), f"Tv has shape {tv.shape}")
-        check(bool(np.isfinite(tv).all()), "Tv is not finite")
-        check(abs(float(tv.sum()) - 1.0) <= 1e-3,
-              f"Tv mass {float(tv.sum())} is not 1 +- 1e-3")
-        rows = [json.loads(line) for line in
-                (out / "metrics.jsonl").read_text().splitlines()]
-        check(len(rows) == 2, f"metrics.jsonl has {len(rows)} rows")
-        for row in rows:
-            for key in ("train_loss", "val_loss"):
-                check(np.isfinite(row[key]), f"{key} not finite: {row}")
-            clog = row["coupling_log"]
-            check(len(clog["gw_outer_iters"]) == 2 and clog["fot_iters"] > 0,
-                  f"coupling_log incomplete: {clog}")
-            log(f"[main] epoch {row['epoch']}: phase_seconds "
-                f"{row['phase_seconds']}; train_loss {row['train_loss']:.4f} "
-                f"val_loss {row['val_loss']:.4f}; gw iters "
-                f"{clog['gw_outer_iters']} fot iters {clog['fot_iters']}; "
-                f"median step {row['median_step_ms']:.1f} ms")
-        check(result["best_summary"] is not None, "no best epoch recorded")
-    log(f"[main] phase {time.perf_counter() - t0:.2f} s")
+
+def _check_rows(tag, out, epochs, result):
+    """The run's artifacts and metrics rows; logs each epoch's phases and
+    median step; returns the rows."""
+    import numpy as np
+
+    for name in ("results.txt", "metrics.jsonl", "model_config.json",
+                 "best_model/checkpoint.pt", "latest/checkpoint.pt"):
+        check((out / name).exists(), f"[{tag}] missing artifact {name}")
+    rows = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    check(len(rows) == epochs, f"[{tag}] metrics.jsonl has {len(rows)} rows")
+    for row in rows:
+        for key in ("train_loss", "val_loss"):
+            check(bool(np.isfinite(row[key])), f"[{tag}] {key} not finite: "
+                  f"{row}")
+        log(f"[{tag}] epoch {row['epoch']}: phase_seconds "
+            f"{row['phase_seconds']}; train_loss {row['train_loss']:.4f} "
+            f"val_loss {row['val_loss']:.4f}; median step "
+            f"{row['median_step_ms']:.1f} ms")
+    check(result["best_summary"] is not None, f"[{tag}] no best epoch")
+    return rows
+
+
+def _micro_total(n_train, batch, accum, epochs):
+    """Train-step solves of the base trainer: each batch of n rows runs
+    ``accum`` microbatches when accum > 1 divides n (n >= accum), else one
+    (the JAX step's rule, otfusion_tpu/train/steps.py:110-111)."""
+    sizes = [min(batch, n_train - i) for i in range(0, n_train, batch)]
+    per_epoch = sum(accum if accum > 1 and n >= accum and n % accum == 0
+                    else 1 for n in sizes)
+    return epochs * per_epoch
+
+
+def phase_flagship(data, work):
+    """The flagship trainer at its CLI defaults for 2 epochs."""
+    import numpy as np
+
+    from otfusion_tpu_torch.cli import train_ot_attn
+
+    t0 = time.perf_counter()
+    out = work / "flagship"
+    result, launches, _ = _drive("flagship", train_ot_attn, [
+        "--epochs", "2", "--batch-size", "8", "--data-dir", str(data),
+        "--save-path", str(out)])
+    check(launches["sinkhorn"] > 0, "K2 was not launched by the flagship")
+    check(launches["gw"] > 0, "K1 was not launched by the flagship")
+    check(launches["sinkhorn"] == launches["gw"],
+          "K2 did not launch once per coupling, as K1 does")
+    rows = _check_rows("flagship", out, 2, result)
+    for row in rows:
+        clog = row["coupling_log"]
+        check(len(clog["gw_outer_iters"]) == 2 and clog["fot_iters"] > 0,
+              f"coupling_log incomplete: {clog}")
+        log(f"[flagship] epoch {row['epoch']}: gw iters "
+            f"{clog['gw_outer_iters']} fot iters {clog['fot_iters']}")
+    tv = np.load(out / "t_feature.npy")
+    check(tv.shape == (2048, 2048), f"Tv has shape {tv.shape}")
+    check(bool(np.isfinite(tv).all()), "Tv is not finite")
+    check(abs(float(tv.sum()) - 1.0) <= 1e-3,
+          f"Tv mass {float(tv.sum())} is not 1 +- 1e-3")
+    log(f"[flagship] phase {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def phase_base(data, work):
+    """The base trainer (K2 inside every train step) at full width for 2
+    epochs; then one full-width base step under CUDA's sync debug mode."""
+    from otfusion_tpu_torch.cli import train_mri_pet_ot
+
+    t0 = time.perf_counter()
+    out = work / "base"
+    result, launches, _ = _drive("base", train_mri_pet_ot, [
+        "--epochs", "2", "--batch-size", "8", "--data-dir", str(data),
+        "--save-path", str(out)])
+    n_train = len(json.loads((out / "train_split.json").read_text()))
+    steps = _micro_total(n_train, 8, 1, 2)
+    log(f"[base] {n_train} train samples: {steps} train steps")
+    check(launches["sinkhorn"] == steps,
+          f"K2 launched {launches['sinkhorn']} times for {steps} steps")
+    check(launches["gw"] == 0, "K1 was launched by the base trainer")
+    check(not (out / "t_feature.npy").exists(), "base saved t_feature.npy")
+    rows = _check_rows("base", out, 2, result)
+    step = _base_step_without_sync()
+    log(f"[base] phase {time.perf_counter() - t0:.2f} s")
+    return launches, {"median_step_ms": [r["median_step_ms"] for r in rows],
+                      **step}
+
+
+def _base_step_without_sync():
+    """One base train step at full width (depth 101, 128^3, bf16, batch 8)
+    under ``torch.cuda.set_sync_debug_mode("error")``: any host read inside
+    the step, the in-step K2 solve included, raises. Also times the step and
+    K2's device time inside it."""
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import K2_NAMES, device_ms, \
+        time_ms
+    from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
+    from otfusion_tpu_torch.ops import sinkhorn_kernel
+    from otfusion_tpu_torch.train.steps import make_fusion_train_step
+    from otfusion_tpu_torch.train.train_state import make_optimizer
+
+    torch.manual_seed(0)
+    model = MultimodalOTFusion(depth=101, s2d_stem=True, variant="base").to(
+        device="cuda", memory_format=torch.channels_last_3d)
+    step = make_fusion_train_step(
+        model, make_optimizer(model.parameters(), 1e-5), in_batch_fot=True,
+        compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mri, pet = (torch.randn((8, 128, 128, 128, 1), device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+    labels = torch.arange(8, device="cuda") % 2
+    step(mri, pet, labels, None, gen)  # warm-up: cuDNN picks algorithms
+    torch.cuda.synchronize()
+    before = sinkhorn_kernel.COUNTER.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        met = step(mri, pet, labels, None, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = sinkhorn_kernel.COUNTER.count - before
+    loss = float(met["loss"])
+    log(f"[base] one step under set_sync_debug_mode('error'): no host "
+        f"read; loss {loss:.4f}; K2 launches {launched}")
+    check(launched == 1, "the base step did not solve on K2 once")
+    check(loss == loss and abs(loss) < float("inf"), "base loss not finite")
+    step_ms = time_ms(lambda: step(mri, pet, labels, None, gen), 5)
+    k2_ms, events = device_ms(lambda: step(mri, pet, labels, None, gen),
+                              K2_NAMES, 3)
+    log(f"[base] full-width step {step_ms:.2f} ms (median of 5); K2 "
+        f"{k2_ms:.4f} ms of it on the device ({events:.1f} launches per "
+        f"step, {k2_ms / step_ms:.4f} of the step)")
+    return {"step_ms": step_ms, "k2_device_ms_per_step": k2_ms}
+
+
+def phase_small(data, work):
+    """The other trainers for 1 epoch at depth 18, 64^3, batch 8: base
+    with --grad-accum 2, mmfusion, unimodal with --grad-accum 2 (no
+    kernel), and the T1/T2 trainer on the cohort's folders linked under
+    its class names (K1 and K2 once per coupling)."""
+    import os
+
+    from otfusion_tpu_torch.cli import (
+        train_mmfusion,
+        train_mri_pet_ot,
+        train_t1_t2_ot,
+        train_unimodal,
+    )
+
+    small = ["--epochs", "1", "--batch-size", "8", "--model-depth", "18",
+             "--target-shape", "64", "64", "64"]
+    launches = {}
+    t0 = time.perf_counter()
+    out = work / "accum"
+    result, got, _ = _drive("accum", train_mri_pet_ot, [
+        *small, "--grad-accum", "2", "--data-dir", str(data),
+        "--save-path", str(out)])
+    n_train = len(json.loads((out / "train_split.json").read_text()))
+    solves = _micro_total(n_train, 8, 2, 1)
+    log(f"[accum] {n_train} train samples: {solves} microbatch solves")
+    check(got["sinkhorn"] == solves,
+          f"K2 launched {got['sinkhorn']} times for {solves} microbatches")
+    check(got["gw"] == 0, "K1 was launched by the base trainer")
+    _check_rows("accum", out, 1, result)
+    launches["accum"] = got
+    log(f"[accum] phase {time.perf_counter() - t0:.2f} s")
+
+    for tag, module, extra in (
+            ("mmfusion", train_mmfusion, []),
+            ("unimodal", train_unimodal,
+             ["--grad-accum", "2", "--classes", "AD", "CN"])):
+        t0 = time.perf_counter()
+        out = work / tag
+        result, got, _ = _drive(tag, module, [
+            *small, *extra, "--data-dir", str(data),
+            "--save-path", str(out)])
+        check(got == {"sinkhorn": 0, "gw": 0}, f"[{tag}] launched a kernel")
+        _check_rows(tag, out, 1, result)
+        launches[tag] = got
+        log(f"[{tag}] phase {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    t1t2 = work / "adni_t1_t2"
+    t1t2.mkdir()
+    for cls, size in (("AD", 130), ("CN", 229)):
+        for mod, seq in (("MRI", "T1"), ("PET", "T2")):
+            os.symlink(data / f"{cls}_{mod}_{size}_FIN",
+                       t1t2 / f"1204_{cls}_MRI_{seq}_FIN")
+    out = work / "t1t2"
+    result, got, _ = _drive("t1t2", train_t1_t2_ot, [
+        *small, "--data-dir", str(t1t2), "--save-path", str(out)])
+    check(got["gw"] > 0 and got["sinkhorn"] == got["gw"],
+          "the T1/T2 trainer did not launch K1 and K2 once per coupling")
+    check((out / "t_feature.npy").exists(), "[t1t2] no t_feature.npy")
+    _check_rows("t1t2", out, 1, result)
+    launches["t1t2"] = got
+    log(f"[t1t2] phase {time.perf_counter() - t0:.2f} s")
     return launches
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after the kernel comparisons (phase 4)")
+                        help="stop after the kernel comparisons")
     args = parser.parse_args(argv)
     if not (PACKAGE / "csrc").is_dir():
         fail(f"{PACKAGE} not found: run chip_smoke.py from a checkout of "
@@ -363,26 +601,51 @@ def main(argv=None) -> None:
     phase_build()
     k2 = phase_k2()
     k1 = phase_k1()
+    k2_base = phase_k2_base()
     if args.kernels_only:
         log(f"[done] kernels only, {time.perf_counter() - t0:.2f} s")
         return
-    launches = phase_main_path()
 
     import torch
 
+    from otfusion_tpu_torch.data.synthetic import make_synthetic_adni
+
+    # The comparison phases are over: the trainers run as a user's would,
+    # with PyTorch's default precision settings.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(prefix="otf_smoke_") as tmp:
+        work = Path(tmp)
+        t1 = time.perf_counter()
+        data = make_synthetic_adni(work / "adni", n_per_class=96,
+                                   shape=(64, 64, 64))
+        log(f"[cohort] synthetic 2 x 96 at 64^3 "
+            f"({time.perf_counter() - t1:.2f} s)")
+        torch.cuda.reset_peak_memory_stats()
+        runs = {"flagship": phase_flagship(data, work)}
+        runs["base"], base = phase_base(data, work)
+        runs.update(phase_small(data, work))
+        log(f"[trainers] peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    total = {k: sum(r[k] for r in runs.values()) for k in ("sinkhorn", "gw")}
+    log(f"[trainers] launches per run {json.dumps(runs)}; total {total}")
+    log(f"[base] {json.dumps(base)}")
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_solve")
+    base_keys = ("base_ms", "base_plain_ms", "base_bound_ms", "base_n_iters",
+                 "base_max_abs_err")
     kernels = [
         {"name": "gw_solve", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/gw.cu",
          "replaces": "otfusion_tpu/experimental/gw_kernel.py:149",
-         "launches": launches["gw"], **{k: k1[k] for k in keys},
+         "launches": total["gw"], **{k: k1[k] for k in keys},
          "library_ms": None},
         {"name": "sinkhorn", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/sinkhorn.cu",
          "replaces": "otfusion_tpu/experimental/sinkhorn_kernel.py:131",
-         "launches": launches["sinkhorn"], **{k: k2[k] for k in keys},
-         "library_ms": None},
+         "launches": total["sinkhorn"], **{k: k2[k] for k in keys},
+         **{k: k2_base[k] for k in base_keys}, "library_ms": None},
     ]
     log(f"[done] {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"kernels": kernels}))

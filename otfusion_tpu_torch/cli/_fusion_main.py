@@ -1,4 +1,5 @@
-"""Shared main() of the fusion trainers (port of
+"""Shared main() of the fusion trainers ``train_ot_attn``,
+``train_mri_pet_ot``, ``train_mmfusion`` and ``train_t1_t2_ot`` (port of
 ``otfusion_tpu.cli._fusion_main``)."""
 
 from __future__ import annotations
@@ -125,6 +126,7 @@ def fusion_main(*, variant: str, description: str, default_save_path: str,
         gw_max_iterations=args.gw_max_iterations,
         sinkhorn_max_iterations=args.sinkhorn_max_iterations,
         s2d_stem=args.s2d_stem,
+        grad_accum=args.grad_accum,
         raw_plan=args.raw_reference_plan,
         compute_dtype=resolve_dtype(args.dtype),
         num_classes=2,

@@ -21,6 +21,13 @@ public calls run with the package of the checkout at DIR, in turns:
 baseline, this, this, baseline. Then this package's K1 runs once per
 cluster size that its layout admits (``gw_kernel.CLUSTER_SIZES``), each
 held to the built-in size's plan. Everything lands in ``--out`` as JSON.
+
+``K1_NAMES``, ``K2_NAMES``, ``time_ms``, ``device_ms`` and
+``correlated_groups`` are public: ``chip_smoke.py`` and the ``cuda`` tests
+time and feed the kernels with them, so a change to one changes those
+numbers too. They stay in this module (and import nothing of the package)
+because the ``--baseline`` worker runs this file against another checkout's
+package.
 """
 
 from __future__ import annotations
@@ -33,16 +40,19 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-# Kernel names of K1 and K2 in this package and in the port's earlier
-# design (one block per label; one launch per Sinkhorn primitive), so that
-# a --baseline checkout of that design is timed as well.
+# Device-kernel names of K1 and K2, matched as substrings of profiler
+# events: this package's and the port's earlier design's (one block per
+# label; one launch per Sinkhorn primitive), so that a --baseline checkout
+# of that design is timed as well.
 K1_NAMES = ("gw_cluster_kernel", "gw_solve_kernel")
 K2_NAMES = ("sinkhorn_solve_kernel", "row_update_f", "col_update_g",
             "row_marginal", "sum_reduce", "emit_plan")
 
 
 def time_ms(fn, runs: int = 20) -> float:
-    """Median of ``runs`` CUDA-event-timed calls (after one warm-up)."""
+    """Median ms of ``runs`` calls of ``fn`` after one warm-up, each
+    between two CUDA events on the current stream and synchronised, so
+    host work inside the call counts as a caller waits for it."""
     import torch
 
     fn()
@@ -58,9 +68,11 @@ def time_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, names, calls: int = 5) -> tuple[float, float]:
-    """(device ms, kernel events) per call of the kernels in ``names``, one
-    profiler session per call."""
+def device_ms(fn, names, calls: int = 5) -> tuple[float, float]:
+    """(device ms, kernel events) per call of ``fn``, averaged over
+    ``calls`` calls with one ``torch.profiler`` session each: the summed
+    device time of the CUDA events whose name contains one of ``names``
+    (other kernels of the call are left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -88,8 +100,9 @@ def _launches(fn, counter) -> int:
 
 
 def correlated_groups(rng, L, cap, d):
-    """Two (L, cap, d) fp32 clouds sharing an 8-dim latent, as grouped
-    backbone features are."""
+    """Two (L, cap, d) fp32 numpy clouds sharing an 8-dim latent, as
+    grouped backbone features are, drawn from ``rng``
+    (``np.random.default_rng``) in a fixed order, so a seed fixes them."""
     z = rng.normal(size=(L, cap, 8))
     x = z @ rng.normal(size=(8, d)) + 0.05 * rng.normal(size=(L, cap, d))
     y = z @ rng.normal(size=(8, d)) + 0.05 * rng.normal(size=(L, cap, d))
@@ -145,11 +158,11 @@ def measure(runs: int) -> dict:
             lambda a=args: gw_kernel.gw_solve(*a), k1, n)
     for key, (fn, (names, counter), n) in calls.items():
         ms = time_ms(fn, n)
-        dev, events = _device_ms(fn, names)
+        dev, events = device_ms(fn, names)
         out[key] = {"ms": ms, "device_ms": dev,
                     "launches": _launches(fn, counter),
                     "profiled_kernels": events}
-    out["k2_exit"]["n_iters"] = sinkhorn(cost, **kw).n_iters
+    out["k2_exit"]["n_iters"] = int(sinkhorn(cost, **kw).n_iters)
     return out
 
 
@@ -178,7 +191,7 @@ def cluster_sweep(runs: int) -> dict:
             t, it, _ = run()
             row[str(cluster)] = {
                 "ms": time_ms(run, runs),
-                "device_ms": _device_ms(run, K1_NAMES)[0],
+                "device_ms": device_ms(run, K1_NAMES)[0],
                 "n_iters": it.tolist(),
                 "allclose": bool(torch.allclose(t, ref_t, rtol=1e-3,
                                                 atol=1e-6)),

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (the subset of ``otfusion_tpu.cli.common`` the
-flagship trainer needs): argparse groups with the JAX CLI's names and
+single-device trainers need): argparse groups with the JAX CLI's names and
 defaults, device resolution, seeding and split resolution.
 
 Flags of the JAX CLI whose feature is not ported yet are still accepted,
@@ -57,13 +57,18 @@ def add_common_args(parser: argparse.ArgumentParser, *, epochs: int,
     parser.add_argument("--eval-batch-size", type=int, default=None,
                         help="Validation batch size (default 4x "
                              "--batch-size, voxel-capped)")
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="Split each batch into N sequential "
+                             "microbatches (strided rows i::N): one "
+                             "optimiser update per batch with averaged "
+                             "gradients; a batch N does not divide runs "
+                             "unaccumulated")
     # Accepted for CLI parity; each raises NotImplementedError when set.
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--num-devices", type=str, default="default")
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--tp-size", type=int, default=1)
     parser.add_argument("--profile-dir", type=str, default=None)
-    parser.add_argument("--grad-accum", type=int, default=1)
 
 
 def add_ot_args(parser: argparse.ArgumentParser) -> None:
@@ -94,7 +99,6 @@ _UNPORTED = {
     "mri_pretrained": (None, "--resume, pretrained import and --remat"),
     "pet_pretrained": (None, "--resume, pretrained import and --remat"),
     "remat": (False, "--resume, pretrained import and --remat"),
-    "grad_accum": (1, "grad_accum and the base variant's in-step FOT"),
     "mri_backbone": ("", "the model zoo"),
     "pet_backbone": ("", "the model zoo"),
     "num_devices": ("default", "parallelism"),
@@ -107,7 +111,7 @@ _UNPORTED = {
 def reject_unported(args: argparse.Namespace) -> None:
     """Raise for every flag set whose feature the port does not have yet."""
     for name, (unset, item) in _UNPORTED.items():
-        if getattr(args, name) != unset:
+        if getattr(args, name, unset) != unset:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported to "
                 f"otfusion_tpu_torch yet (ROADMAP.md, open item: {item})")

@@ -247,7 +247,7 @@ def main(argv=None) -> dict:
         sync()
         phases["gw_ms"] = (time.perf_counter() - t0) * 1e3
     phases["gw_iters"] = gw.n_iters.tolist()
-    phases["fot_iters"] = fot_res.n_iters
+    phases["fot_iters"] = int(fot_res.n_iters)
     t0 = time.perf_counter()
     svc.compute(iter(feat_batches))
     sync()

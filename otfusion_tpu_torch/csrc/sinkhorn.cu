@@ -35,7 +35,8 @@
 //  * The exit: each block sums its rows' |row marginal - p| in order; grid
 //    barrier; every block sums the grid's parts in the same order, so every
 //    block takes the same decision (one that differed would deadlock the next
-//    barrier). The host reads n_iters and err once, after the solve.
+//    barrier). n_iters and err land in a device buffer that the wrapper
+//    returns unread, so a solve inside a train step never stalls the host.
 //  * The grid barrier is a counter in device memory that the wrapper zeroes;
 //    no -rdc build. No atomics touch a sum: a rerun gives the same bits.
 

@@ -1,4 +1,5 @@
-"""Batching (port of ``otfusion_tpu.data.loader``, paired loader only).
+"""Batching (port of ``otfusion_tpu.data.loader``: the unimodal ``Loader``
+and the paired ``MultimodalLoader``, single host).
 
 A thread pool loads and preprocesses volumes into an LRU cache; ``prefetch``
 assembles the next batch on a background thread while the device computes.
@@ -112,12 +113,15 @@ def _stack(vols: List[np.ndarray], dtype: torch.dtype) -> torch.Tensor:
                                                   copy=False)).to(dtype)
 
 
-class MultimodalLoader:
-    """Paired loader over (mri_path, pet_path, label) samples."""
+class Loader:
+    """Unimodal loader over (path, label) samples; yields (volumes,
+    labels)."""
+
+    columns = 1  # volume paths at the head of each sample
 
     def __init__(
         self,
-        samples: Sequence[Tuple[str, str, int]],
+        samples: Sequence[tuple],
         target_shape,
         batch_size: int,
         shuffle: bool = False,
@@ -139,8 +143,7 @@ class MultimodalLoader:
     def __len__(self) -> int:
         return (len(self.samples) + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]]:
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         self._epoch += 1
         order = list(range(len(self.samples)))
         if self.shuffle:
@@ -148,23 +151,32 @@ class MultimodalLoader:
         bs = self.batch_size
         for start in range(0, len(order), bs):
             idx = order[start : start + bs]
-            mri_paths = [self.samples[i][0] for i in idx]
-            pet_paths = [self.samples[i][1] for i in idx]
-            labels = [self.samples[i][2] for i in idx]
-            vols = self.cache.get_many(mri_paths + pet_paths)
-            mri = vols[: len(idx)]
-            pet = vols[len(idx) :]
+            labels = torch.tensor([self.samples[i][-1] for i in idx],
+                                  dtype=torch.int64)
+            yield (*self._volumes(idx), labels)
+
+    def _volumes(self, idx: List[int]) -> Tuple[torch.Tensor, ...]:
+        """The ``columns`` volume columns of the samples ``idx``, loaded in
+        one pool pass, column ``c`` augmented with flip stream ``c``,
+        stacked."""
+        n = len(idx)
+        vols = self.cache.get_many([self.samples[i][c]
+                                    for c in range(self.columns)
+                                    for i in idx])
+        out = []
+        for c in range(self.columns):
+            col = vols[c * n:(c + 1) * n]
             if self.augment:
-                mri = [
-                    _augment_np(v, _augment_rng(self.seed, self._epoch, i, 0))
-                    for v, i in zip(mri, idx)
+                col = [
+                    _augment_np(v, _augment_rng(self.seed, self._epoch, i, c))
+                    for v, i in zip(col, idx)
                 ]
-                pet = [
-                    _augment_np(v, _augment_rng(self.seed, self._epoch, i, 1))
-                    for v, i in zip(pet, idx)
-                ]
-            yield (
-                _stack(mri, self.feed_dtype),
-                _stack(pet, self.feed_dtype),
-                torch.tensor(labels, dtype=torch.int64),
-            )
+            out.append(_stack(col, self.feed_dtype))
+        return tuple(out)
+
+
+class MultimodalLoader(Loader):
+    """Paired loader over (mri_path, pet_path, label) samples; yields
+    (mri, pet, labels)."""
+
+    columns = 2

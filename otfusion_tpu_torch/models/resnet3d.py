@@ -1,4 +1,5 @@
-"""3D ResNet backbone (port of ``otfusion_tpu.models.resnet3d``).
+"""3D ResNet backbone and classifier (port of
+``otfusion_tpu.models.resnet3d``).
 
 Topology (reference inline ResNet3D):
   stem   Conv3d(in->64, k=(3,7,7), s=(1,2,2), p=(1,3,3), no bias) + BN + ReLU,
@@ -23,6 +24,8 @@ PyTorch in two places:
 
 Public layout as in JAX: the backbone takes ``(B, D, H, W, C)`` volumes
 and permutes once (the permuted tensor is channels-last-3d in memory).
+``ResNet3DClassifier`` (the unimodal trainer's model) is the backbone plus a
+linear ``fc`` head.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from otfusion_tpu_torch.models.attention import dense
 
 # depth -> (stage block counts, block kind)
 DEPTH_CONFIGS: dict[int, tuple[tuple[int, int, int, int], str]] = {
@@ -230,3 +235,18 @@ class ResNet3DBackbone(nn.Module):
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         x = x.mean(dim=(2, 3, 4))
         return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class ResNet3DClassifier(nn.Module):
+    """Backbone + linear head (the JAX ``ResNet3DClassifier``): returns
+    ``(logits, feats)``."""
+
+    def __init__(self, depth: int = 50, num_classes: int = 2,
+                 s2d_stem: bool = False):
+        super().__init__()
+        self.backbone = ResNet3DBackbone(depth, s2d_stem=s2d_stem)
+        self.fc = dense(self.backbone.out_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        feats = self.backbone(x)
+        return self.fc(feats), feats

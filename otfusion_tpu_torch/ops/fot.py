@@ -4,7 +4,10 @@
 ``Ts`` held fixed, the linearised COOT feature cost ``M`` is constant, so
 ``Tv`` is one entropic OT solve on ``M`` (max-scaled, uniform marginals).
 The products are plain ``torch.matmul``, as XLA computed them outside any
-kernel; the solve goes through ``ops.sinkhorn`` (kernel K2 on CUDA).
+kernel; the solve goes through ``ops.sinkhorn`` (kernel K2 on CUDA). ``fot``
+computes in float32 under any ``torch.autocast``, as the JAX ``fot`` casts
+to float32: the base trainer solves inside its bf16 train step at
+``epsilon=1e-3``, where a bf16 cost would move the plan.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ class FOTResult(NamedTuple):
 
     coupling: torch.Tensor   # (d, d') feature transport plan
     cost: torch.Tensor       # <M, Tv> on the unscaled linearised cost
-    converged: bool
-    n_iters: int             # Sinkhorn iterations
+    converged: torch.Tensor  # 0-d bool, on the device
+    n_iters: torch.Tensor    # 0-d int32 Sinkhorn iterations, on the device
 
 
 def feature_cost(x: torch.Tensor, y: torch.Tensor,
@@ -41,8 +44,10 @@ def fot(x: torch.Tensor, y: torch.Tensor, ts: torch.Tensor, *,
         threshold: float = 1e-3) -> FOTResult:
     """FOT feature coupling for ``x`` (n, d), ``y`` (m, d') under the fixed
     sample plan ``ts`` (n, m), normalised to total mass 1. ``epsilon`` is
-    relative to the max of the feature cost."""
-    with torch.no_grad():
+    relative to the max of the feature cost. Float32 and no gradient,
+    whatever autocast or grad mode the caller runs under."""
+    with torch.no_grad(), torch.autocast(device_type=x.device.type,
+                                         enabled=False):
         x = torch.nan_to_num(x.detach().to(torch.float32))
         y = torch.nan_to_num(y.detach().to(torch.float32))
         ts = ts.detach().to(torch.float32)

@@ -9,11 +9,13 @@ Semantics kept from the JAX solver:
   * ``f0 = update_f(0)`` then ``g0``, the L1 row-marginal error after them,
     ``n_iters`` starting at 1 and growing by ``check_every`` sweeps per
     check until the error drops to ``threshold`` or ``max_iterations``;
-  * no gradient through the solve.
+  * no gradient through the solve;
+  * ``n_iters``, ``converged`` and ``err`` returned as device tensors.
 
 The solve itself is ``ops.sinkhorn_kernel.solve``: on CUDA tensors kernel
-K2 runs it whole, exit included, in one launch; on CPU tensors its plain
-version runs the loop on the host and reads the error once per check.
+K2 runs it whole, exit included, in one launch and the host reads nothing;
+on CPU tensors its plain version runs the loop on the host and reads the
+error once per check.
 """
 
 from __future__ import annotations
@@ -29,14 +31,16 @@ _NEG_INF = -1e30
 
 
 class SinkhornResult(NamedTuple):
-    """Solution of an entropic OT problem (see the JAX ``SinkhornResult``)."""
+    """Solution of an entropic OT problem (see the JAX ``SinkhornResult``).
+    ``n_iters``, ``converged`` and ``err`` are 0-d tensors on the cost's
+    device, as JAX's are device arrays: a caller that logs one reads it."""
 
     coupling: torch.Tensor
     f: torch.Tensor
     g: torch.Tensor
-    n_iters: int
-    converged: bool
-    err: float
+    n_iters: torch.Tensor
+    converged: torch.Tensor
+    err: torch.Tensor
     cost: torch.Tensor
 
 

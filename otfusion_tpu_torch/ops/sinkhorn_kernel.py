@@ -12,8 +12,10 @@ below ``max_iterations``; with ``check=False`` a fixed count, as
   * ``solve_plain`` drives the plain PyTorch primitives (``PLAIN``) from a
     host loop that reads the error once per check;
   * ``solve`` takes ``solve_plain`` for CPU tensors and, for CUDA tensors,
-    launches K2 once per solve and reads ``n_iters`` and ``err`` once after
-    it (or raises). ``COUNTER`` counts one launch per solve.
+    launches K2 once per solve (or raises) and returns ``n_iters`` and
+    ``err`` as device tensors: nothing in it waits for the device, so a
+    train step that solves in the middle queues its backward pass behind
+    the solve. ``COUNTER`` counts one launch per solve.
 
 ``sinkhorn_layout`` is the launch's pure-Python layout: band height, grid
 and whether a band fits in shared memory.
@@ -47,14 +49,15 @@ class SweepOps(NamedTuple):
 
 
 class Solve(NamedTuple):
-    """Result of one solve: duals, plan, iterations run and the last
-    row-marginal error (NaN with the check off)."""
+    """Result of one solve: duals, plan, iterations run (0-d int32) and the
+    last row-marginal error (0-d float32, NaN with the check off), all on
+    the solve's device."""
 
     f: torch.Tensor
     g: torch.Tensor
     plan: torch.Tensor
-    n_iters: int
-    err: float
+    n_iters: torch.Tensor
+    err: torch.Tensor
 
 
 # --- plain version -----------------------------------------------------------
@@ -102,7 +105,10 @@ def solve_plain(neg_c, log_p, log_q, p_w, eps: float, *, max_iterations: int,
         if check:
             err = float(ops.marginal_err(neg_c, f, g, p_w, eps))
         n_iters += step
-    return Solve(f, g, ops.plan(neg_c, f, g, eps), n_iters, err)
+    device = neg_c.device
+    return Solve(f, g, ops.plan(neg_c, f, g, eps),
+                 torch.tensor(n_iters, dtype=torch.int32, device=device),
+                 torch.tensor(err, dtype=torch.float32, device=device))
 
 
 # --- kernel ------------------------------------------------------------------
@@ -159,8 +165,8 @@ def solve(neg_c, log_p, log_q, p_w, eps: float, *, max_iterations: int,
           threshold: float = 0.0, check_every: int = 5,
           check: bool = True) -> Solve:
     """The whole solve (arguments and result as ``solve_plain``). CPU
-    tensors take ``solve_plain``; CUDA tensors launch K2 once and read its
-    ``n_iters`` and ``err`` once."""
+    tensors take ``solve_plain``; CUDA tensors launch K2 once, and its
+    ``n_iters`` and ``err`` stay on the device (no host read)."""
     tensors = (neg_c, log_p, log_q, p_w)
     if all(t.device.type == "cpu" for t in tensors):
         return solve_plain(neg_c, log_p, log_q, p_w, eps,
@@ -184,8 +190,8 @@ def solve(neg_c, log_p, log_q, p_w, eps: float, *, max_iterations: int,
            log_p, log_q, p_w, f, g, plan, stats, scratch, barrier, n, m,
            lay.rows, lay.route == "shared", float(eps), int(max_iterations),
            float(threshold), int(check_every if check else 1), bool(check))
-    host = stats.cpu()  # the solve's one synchronisation
-    return Solve(f, g, plan, int(host[0]), float(host[1:].view(torch.float32)))
+    # stats = (n_iters, err's bits): both stay on the device, unread.
+    return Solve(f, g, plan, stats[0], stats[1:].view(torch.float32)[0])
 
 
 # --- fixed-iteration solve (what sinkhorn_pallas computes) -------------------

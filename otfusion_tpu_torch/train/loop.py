@@ -1,13 +1,21 @@
-"""Fusion epoch loop (port of ``otfusion_tpu.train.loop.run_fusion_training``,
-single device).
+"""Epoch loops (port of ``otfusion_tpu.train.loop``: ``run_fusion_training``
+and ``run_unimodal_training``, single device).
 
-Per run: the feature pass and the per-epoch coupling before epoch 1; then
-per epoch train, eval, ``results.txt`` row, ``metrics.jsonl`` row (with the
-phase split and the coupling log of the plan the epoch trained with), best
-checkpoint (+ ``t_feature.npy``), plateau LR step, latest checkpoint, and
-the coupling for the next epoch. After the last epoch the best weights are
-restored, ``Tv`` is recomputed from them and saved, and the best model is
-evaluated once more.
+Fusion, per run: for ``per_epoch_attn`` the feature pass and the per-epoch
+coupling before epoch 1; then per epoch train, eval, ``results.txt`` row,
+``metrics.jsonl`` row (with the phase split and, for ``per_epoch_attn``,
+the coupling log of the plan the epoch trained with), best checkpoint (+
+``t_feature.npy`` for ``per_epoch_attn``), plateau LR step, latest
+checkpoint, and the coupling for the next epoch. After the last epoch the
+best weights are restored, ``Tv`` is recomputed from them and saved, and the
+best model is evaluated once more. ``base`` solves its plan inside every
+train step (kernel K2 on CUDA) and ``mmfusion`` has none, so neither builds
+a coupling service or saves ``t_feature.npy``.
+
+Unimodal: the same epoch rows and checkpoints with Adam and no LR schedule.
+
+The confusion-matrix and t-SNE PNGs of the JAX loops are not written yet
+(ROADMAP.md, open item: the PNG artifacts).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from otfusion_tpu_torch.data.loader import (
+    Loader,
     MultimodalLoader,
     _VolumeCache,
     feed_dtype_for,
@@ -31,11 +40,14 @@ from otfusion_tpu_torch.data.loader import (
 )
 from otfusion_tpu_torch.metrics.classification import classification_metrics
 from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
+from otfusion_tpu_torch.models.resnet3d import ResNet3DClassifier
 from otfusion_tpu_torch.train.coupling import CouplingService
 from otfusion_tpu_torch.train.steps import (
     make_feature_extract_step,
     make_fusion_eval_step,
     make_fusion_train_step,
+    make_unimodal_eval_step,
+    make_unimodal_train_step,
 )
 from otfusion_tpu_torch.train.train_state import (
     ReduceLROnPlateau,
@@ -132,6 +144,10 @@ class _StepTimer:
         return statistics.median(times)
 
 
+def _dtype_name(compute_dtype) -> str:
+    return "bfloat16" if compute_dtype == torch.bfloat16 else "float32"
+
+
 def _append_jsonl(path, record):
     """Append one JSON row; returns its byte offset for the rewrite."""
     with open(path, "a") as f:
@@ -178,7 +194,9 @@ def _save_tv(save_path, tv):
     os.replace(tmp, path)
 
 
-def _run_train_epoch(train_step, loader, t_feature, device, generator):
+def _run_train_epoch(train_step, loader, device, extra=()):
+    """One pass of ``train_step(*batch, *extra)`` over ``loader`` (labels
+    last in each batch); returns (mean loss, accuracy, median step ms)."""
     total_loss, total_correct, total_n = 0.0, 0, 0
     timer = _StepTimer(device)
     pending = deque()
@@ -190,14 +208,12 @@ def _run_train_epoch(train_step, loader, t_feature, device, generator):
         total_correct += int(met["correct"])
         total_n += n
 
-    for mri, pet, labels in prefetch(iter(loader)):
-        mri = mri.to(device, non_blocking=True)
-        pet = pet.to(device, non_blocking=True)
-        labels = labels.to(device, non_blocking=True)
+    for batch in prefetch(iter(loader)):
+        batch = [x.to(device, non_blocking=True) for x in batch]
         start = timer.start()
-        met = train_step(mri, pet, labels, t_feature, generator)
+        met = train_step(*batch, *extra)
         timer.stop(start)
-        pending.append((met, int(labels.shape[0])))
+        pending.append((met, int(batch[-1].shape[0])))
         if len(pending) > _PIPELINE_LAG:
             _drain()
     while pending:
@@ -205,26 +221,41 @@ def _run_train_epoch(train_step, loader, t_feature, device, generator):
     return total_loss / total_n, total_correct / total_n, timer.median_ms()
 
 
-def _run_eval_epoch(eval_step, loader, t_feature, device,
-                    collect_logits=False):
+def _run_eval_epoch(eval_step, loader, device, extra=(), collect=None):
+    """One pass of ``eval_step(*batch, *extra)``; returns (mean loss,
+    accuracy, preds, targets, the concatenated ``collect`` output or
+    None)."""
     total_loss, total_correct, total_n = 0.0, 0, 0
     preds: List[int] = []
     targets: List[int] = []
-    logits_all = []
-    for mri, pet, labels in prefetch(iter(loader)):
-        out = eval_step(mri.to(device, non_blocking=True),
-                        pet.to(device, non_blocking=True),
-                        labels.to(device, non_blocking=True), t_feature)
+    kept = []
+    for batch in prefetch(iter(loader)):
+        labels = batch[-1]
+        out = eval_step(*[x.to(device, non_blocking=True) for x in batch],
+                        *extra)
         n = int(labels.shape[0])
         total_loss += float(out["loss"]) * n
         total_correct += int(out["correct"])
         total_n += n
         preds.extend(out["preds"].tolist())
         targets.extend(labels.tolist())
-        if collect_logits:
-            logits_all.append(out["logits"].cpu().numpy())
-    logits = np.concatenate(logits_all) if logits_all else None
-    return total_loss / total_n, total_correct / total_n, preds, targets, logits
+        if collect:
+            kept.append(out[collect].cpu().numpy())
+    kept = np.concatenate(kept) if kept else None
+    return total_loss / total_n, total_correct / total_n, preds, targets, kept
+
+
+def _place(model, device: torch.device):
+    """The model on ``device``; channels-last-3d on a GPU (cuDNN's fast
+    3D-convolution layout)."""
+    if device.type == "cuda":
+        return model.to(device=device, memory_format=torch.channels_last_3d)
+    return model.to(device)
+
+
+def _write_json(path, payload) -> None:
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
 
 
 def run_fusion_training(
@@ -249,6 +280,7 @@ def run_fusion_training(
     ot_epsilon: float = 5e-3,
     gw_max_iterations: int = 2000,
     sinkhorn_max_iterations: int = 2000,
+    grad_accum: int = 1,
     feature_batch_size: Optional[int] = None,
     eval_batch_size: Optional[int] = None,
     mri_backbone: str = "",
@@ -299,30 +331,25 @@ def run_fusion_training(
         projection_dropout=projection_dropout, variant=variant,
         mri_backbone=mri_backbone, pet_backbone=pet_backbone,
         s2d_stem=s2d_stem, raw_plan=raw_plan)
-    if device.type == "cuda":
-        model = model.to(device=device, memory_format=torch.channels_last_3d)
-    else:
-        model = model.to(device)
-    with open(os.path.join(save_path, "model_config.json"), "w") as f:
-        json.dump({
-            "kind": "fusion", "variant": variant,
-            "model_depth": model_depth,
-            "target_shape": list(target_shape),
-            "num_classes": num_classes,
-            "projection_dropout": projection_dropout,
-            "mri_backbone": mri_backbone,
-            "pet_backbone": pet_backbone,
-            "s2d_stem": s2d_stem, "raw_plan": raw_plan,
-            "dtype": "bfloat16" if compute_dtype == torch.bfloat16
-            else "float32",
-            "class_names": class_names,
-            "class_names_b": class_names_b,
-        }, f, indent=2)
+    model = _place(model, device)
+    _write_json(os.path.join(save_path, "model_config.json"), {
+        "kind": "fusion", "variant": variant,
+        "model_depth": model_depth,
+        "target_shape": list(target_shape),
+        "num_classes": num_classes,
+        "projection_dropout": projection_dropout,
+        "mri_backbone": mri_backbone,
+        "pet_backbone": pet_backbone,
+        "s2d_stem": s2d_stem, "raw_plan": raw_plan,
+        "dtype": _dtype_name(compute_dtype),
+        "class_names": class_names,
+        "class_names_b": class_names_b,
+    })
 
     optimizer = make_optimizer(model.parameters(), lr)
     train_step = make_fusion_train_step(
         model, optimizer, in_batch_fot=(variant == "base"),
-        compute_dtype=compute_dtype)
+        grad_accum=grad_accum, compute_dtype=compute_dtype)
     eval_step = make_fusion_eval_step(model, compute_dtype=compute_dtype)
     needs_tv = variant == "per_epoch_attn"
     svc = None
@@ -352,10 +379,10 @@ def run_fusion_training(
     for epoch in range(1, epochs + 1):
         clock = _PhaseClock()
         train_loss, train_acc, step_ms = _run_train_epoch(
-            train_step, train_loader, tv, device, generator)
+            train_step, train_loader, device, (tv, generator))
         clock("train")
         val_loss, val_acc, preds, targets, _ = _run_eval_epoch(
-            eval_step, val_loader, tv, device)
+            eval_step, val_loader, device, (tv,))
         clock("eval")
         metrics = classification_metrics(targets, preds, num_classes)
         writer.epoch_row(epoch, train_loss, train_acc, val_loss, val_acc,
@@ -417,7 +444,7 @@ def run_fusion_training(
     restore_checkpoint(model_dir, model)
     final_tv = compute_tv() if needs_tv else None
     _, _, preds, targets, logits = _run_eval_epoch(
-        eval_step, val_loader, final_tv, device, collect_logits=True)
+        eval_step, val_loader, device, (final_tv,), collect="logits")
     if needs_tv:
         _save_tv(save_path, final_tv)
 
@@ -429,4 +456,139 @@ def run_fusion_training(
         "final_preds": preds,
         "final_targets": targets,
         "final_logits": logits,
+    }
+
+
+def run_unimodal_training(
+    *,
+    samples: Sequence,
+    train_idx: Sequence[int],
+    val_idx: Sequence[int],
+    class_names: Dict[str, int],
+    model_depth: int,
+    target_shape,
+    batch_size: int,
+    lr: float,
+    epochs: int,
+    seed: int,
+    save_path: str,
+    device: torch.device,
+    augment: bool = False,
+    s2d_stem: Optional[bool] = None,
+    grad_accum: int = 1,
+    eval_batch_size: Optional[int] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    config_lines: Optional[Dict[str, object]] = None,
+    num_workers: int = 8,
+    latest_every: int = 1,
+) -> Dict[str, object]:
+    """Train ``ResNet3DClassifier`` on (path, label) samples with Adam and
+    no LR schedule; per epoch train, eval, ``results.txt`` and
+    ``metrics.jsonl`` rows, best and latest checkpoints. After the last
+    epoch the best weights are restored and evaluated once more, with their
+    pooled features. The reference's confusion-matrix and t-SNE PNGs are
+    not written yet (ROADMAP §2 item 3)."""
+    if not len(val_idx) or not len(train_idx):
+        raise ValueError(
+            f"empty split: {len(train_idx)} train / {len(val_idx)} val "
+            "samples — increase --val-fraction or the cohort size")
+    os.makedirs(save_path, exist_ok=True)
+    results_file = os.path.join(save_path, "results.txt")
+    model_dir = os.path.join(save_path, "best_model")
+    latest_dir = os.path.join(save_path, "latest")
+    num_classes = len(class_names)
+    s2d_stem = True if s2d_stem is None else bool(s2d_stem)
+
+    cache = _VolumeCache(target_shape, num_workers=num_workers)
+    feed = feed_dtype_for(compute_dtype)
+    train_loader = Loader(
+        [samples[i] for i in train_idx], target_shape, batch_size,
+        shuffle=True, augment=augment, seed=seed, cache=cache,
+        feed_dtype=feed)
+    val_loader = Loader(
+        [samples[i] for i in val_idx], target_shape,
+        _resolve_eval_batch(eval_batch_size, batch_size, target_shape),
+        shuffle=False, cache=cache, feed_dtype=feed)
+
+    torch.manual_seed(seed)
+    model = _place(ResNet3DClassifier(depth=model_depth,
+                                      num_classes=num_classes,
+                                      s2d_stem=s2d_stem), device)
+    _write_json(os.path.join(save_path, "model_config.json"), {
+        "kind": "unimodal", "model_depth": model_depth,
+        "target_shape": list(target_shape),
+        "num_classes": num_classes, "s2d_stem": s2d_stem,
+        "dtype": _dtype_name(compute_dtype),
+        "class_names": class_names,
+    })
+    optimizer = make_optimizer(model.parameters(), lr, kind="adam")
+    train_step = make_unimodal_train_step(model, optimizer,
+                                          grad_accum=grad_accum,
+                                          compute_dtype=compute_dtype)
+    eval_step = make_unimodal_eval_step(model, compute_dtype=compute_dtype)
+
+    writer = ResultsWriter(results_file,
+                           "3D ResNet Training Results - ADNI MRI Dataset",
+                           config_lines or {}, style="unimodal")
+    best_val_loss = float("inf")
+    best_summary = None
+    history = []
+    jsonl_path = os.path.join(save_path, "metrics.jsonl")
+    for epoch in range(1, epochs + 1):
+        clock = _PhaseClock()
+        train_loss, train_acc, step_ms = _run_train_epoch(
+            train_step, train_loader, device)
+        clock("train")
+        val_loss, val_acc, preds, targets, _ = _run_eval_epoch(
+            eval_step, val_loader, device)
+        clock("eval")
+        metrics = classification_metrics(targets, preds, num_classes)
+        writer.epoch_row(epoch, train_loss, train_acc, val_loss, val_acc,
+                         metrics)
+        history.append(EpochResult(train_loss, train_acc, val_loss, val_acc,
+                                   metrics))
+        print(
+            f"Epoch {epoch:03d} | train_loss={train_loss:.4f} "
+            f"train_acc={train_acc:.4f} | val_loss={val_loss:.4f} "
+            f"val_acc={val_acc:.4f} | f1={metrics['f1']:.4f} "
+            f"({clock.elapsed():.1f}s)", flush=True)
+
+        def _epoch_record():
+            return {
+                "epoch": epoch, "train_loss": train_loss,
+                "train_acc": train_acc, "val_loss": val_loss,
+                "val_acc": val_acc, **metrics,
+                "epoch_seconds": round(clock.elapsed(), 3),
+                "phase_seconds": dict(clock.phases),
+                "median_step_ms": step_ms,
+            }
+
+        row_offset = _append_jsonl(jsonl_path, _epoch_record())
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            best_summary = {"epoch": epoch, "val_loss": val_loss,
+                            "val_acc": val_acc, **metrics}
+            save_checkpoint(model_dir, model, best_summary)
+        if epoch % max(1, latest_every) == 0 or epoch == epochs:
+            save_checkpoint(
+                latest_dir, model,
+                {"epoch": epoch, "best_val_loss": best_val_loss,
+                 "best_summary": best_summary},
+                optimizer=optimizer)
+        clock("checkpoint")
+        _rewrite_last_jsonl(jsonl_path, _epoch_record(), row_offset)
+
+    writer.summary(best_val_loss, best_summary, model_dir)
+
+    restore_checkpoint(model_dir, model)
+    _, _, preds, targets, feats = _run_eval_epoch(
+        eval_step, val_loader, device, collect="features")
+    return {
+        "best_val_loss": best_val_loss,
+        "best_summary": best_summary,
+        "history": history,
+        "model_dir": model_dir,
+        "final_preds": preds,
+        "final_targets": targets,
+        "final_features": feats,
     }

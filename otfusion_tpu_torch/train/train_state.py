@@ -2,8 +2,10 @@
 
 AdamW as optax's ``adamw`` with the fusion trainers' settings: weight decay
 1e-5 (not torch's default 1e-2), betas (0.9, 0.999), eps 1e-8, on every
-parameter. The plateau scheduler is the same epoch-level state machine as
-the JAX package's, feeding ``set_learning_rate``.
+parameter; ``kind="adam"`` is optax's ``adam`` with the same betas and eps
+and no weight decay (the unimodal trainer). The plateau scheduler is the
+same epoch-level state machine as the JAX package's, feeding
+``set_learning_rate``.
 """
 
 from __future__ import annotations
@@ -15,9 +17,15 @@ import torch
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float,
-                   weight_decay: float = 1e-5) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=weight_decay)
+                   weight_decay: float = 1e-5,
+                   kind: str = "adamw") -> torch.optim.Optimizer:
+    if kind == "adamw":
+        return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=weight_decay)
+    if kind == "adam":
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8)
+    raise ValueError(f"unknown optimizer kind: {kind}")
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

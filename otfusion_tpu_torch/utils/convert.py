@@ -2,8 +2,8 @@
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` / ``flax.core.unfreeze`` output). Output:
-a ``state_dict`` of the port's ``MultimodalOTFusion`` (or of one
-``ResNet3DBackbone``). Layouts:
+a ``state_dict`` of the port's ``MultimodalOTFusion``, ``ResNet3DClassifier``
+or ``ResNet3DBackbone``. Layouts:
 
   Conv kernel    (kD, kH, kW, I, O)        -> (O, I, kD, kH, kW)
   Dense kernel   (in, out)                 -> (out, in)
@@ -120,5 +120,17 @@ def fusion_state_dict_from_jax(params: Dict[str, Any],
     _dense(out, "attention_mri.ff1", att["Dense_0"])
     _dense(out, "attention_mri.ff2", att["Dense_1"])
     _layer_norm(out, "attention_mri.norm2", att["LayerNorm_1"])
+    _dense(out, "fc", params["fc"])
+    return out
+
+
+def classifier_state_dict_from_jax(params: Dict[str, Any],
+                                   batch_stats: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``ResNet3DClassifier`` from the JAX
+    ``ResNet3DClassifier`` params and batch_stats trees."""
+    out = resnet3d_state_dict_from_jax(params["backbone"],
+                                       batch_stats["backbone"],
+                                       prefix="backbone")
     _dense(out, "fc", params["fc"])
     return out

@@ -4,8 +4,10 @@ A CUDA kernel has no interpret mode, so these tests need the card: they are
 marked ``cuda`` and skip without one. ``chip_smoke.py`` holds the kernels to
 their plain versions at the main path's shapes; these tests add ragged
 shapes, masks, both band routes of K2, every cluster size of K1, bitwise
-reruns and the wrappers' refusals. They import no JAX, so on a machine with
-a GPU they run without the repository's conftest:
+reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs and
+a base train step that must not read the device from the host. They import
+no JAX, so on a machine with a GPU they run without the repository's
+conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
@@ -16,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from otfusion_tpu_torch.cli.bench_kernels import correlated_groups
+from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
 from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
+from otfusion_tpu_torch.ops.fot import feature_cost
 from otfusion_tpu_torch.ops.gromov import _prep, egw_per_label
 from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
+from otfusion_tpu_torch.train.steps import make_fusion_train_step
+from otfusion_tpu_torch.train.train_state import make_optimizer
 from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_fixed
 from otfusion_tpu_torch.utils.cuda_build import load_library
 
@@ -60,8 +67,9 @@ def test_sinkhorn_whole_solve_matches_plain(cuda, n, m):
     ker = sinkhorn(cost, **kw)
     assert sinkhorn_kernel.COUNTER.count == before + 1  # one launch a solve
     ref = sinkhorn(cost, plain=True, **kw)
-    assert ker.n_iters == ref.n_iters and ker.converged == ref.converged
-    assert ker.err == pytest.approx(ref.err, rel=1e-3, abs=1e-6)
+    assert int(ker.n_iters) == int(ref.n_iters)
+    assert bool(ker.converged) == bool(ref.converged)
+    assert float(ker.err) == pytest.approx(float(ref.err), rel=1e-3, abs=1e-6)
     _close(ker.coupling, ref.coupling, 1e-4)
     torch.testing.assert_close(ker.f, ref.f, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ker.g, ref.g, rtol=1e-4, atol=1e-5)
@@ -81,7 +89,8 @@ def test_sinkhorn_solve_matches_plain(cuda, masked):
         kw.update(row_mask=rm, col_mask=cm)
     ker = sinkhorn(cost, **kw)
     ref = sinkhorn(cost, plain=True, **kw)
-    assert ker.n_iters == ref.n_iters and ker.converged == ref.converged
+    assert int(ker.n_iters) == int(ref.n_iters)
+    assert bool(ker.converged) == bool(ref.converged)
     _close(ker.coupling, ref.coupling, 1e-4)
     if masked:
         assert float(ker.coupling[250:].abs().sum()) == 0.0
@@ -165,7 +174,7 @@ def test_k2_rerun_bitwise_equal(cuda):
     a, b = sinkhorn(cost, **kw), sinkhorn(cost, **kw)
     assert torch.equal(a.coupling, b.coupling)
     assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
-    assert (a.n_iters, a.err) == (b.n_iters, b.err)
+    assert torch.equal(a.n_iters, b.n_iters) and torch.equal(a.err, b.err)
 
 
 def test_layouts_match_the_library(cuda):
@@ -211,3 +220,70 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     v = torch.zeros((1, cap), device=cuda)
     with pytest.raises(ValueError, match="limit"):
         gw_kernel.gw_solve(c, c, v, v, v, v)
+
+
+@pytest.mark.parametrize("b", [8, 4])
+def test_k2_at_the_base_inputs_matches_plain(cuda, b):
+    """The base trainer's in-step solve: FOT cost of b rows of 2048-dim
+    features under eye(b) / b, eps 1e-3 (scaled cost down to -1000). The
+    exits may lie one check apart; the plan is held against the plain solve
+    run for the kernel's own count."""
+    x, y = correlated_groups(np.random.default_rng(2), 1, b, 2048)
+    ts = torch.eye(b, device=cuda) / b
+    cost = feature_cost(torch.from_numpy(x[0]).to(cuda),
+                        torch.from_numpy(y[0]).to(cuda), ts).contiguous()
+    kw = dict(epsilon=1e-3, threshold=1e-3, max_iterations=2000,
+              scale_cost=True)
+    ker = sinkhorn(cost, **kw)
+    ref = sinkhorn(cost, plain=True, **kw)
+    assert abs(int(ker.n_iters) - int(ref.n_iters)) <= 5
+    assert bool(ker.converged) and bool(ref.converged)
+    n = cost.shape[0]
+    neg_c = (-(cost / cost.max()) / 1e-3).contiguous()
+    log_w = torch.full((n,), -float(np.log(n)), device=cuda)
+    same = sinkhorn_kernel.solve_plain(
+        neg_c, log_w, log_w, log_w.exp(), 1e-3,
+        max_iterations=int(ker.n_iters), check=False)
+    _close(ker.coupling, same.plan, 1e-4)
+
+
+def test_sinkhorn_reads_nothing_back(cuda):
+    """The whole solve, exit included, queues without a host read."""
+    rng = np.random.default_rng(6)
+    cost = torch.from_numpy(rng.uniform(size=(300, 200)).astype(np.float32)
+                            ).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = sinkhorn(cost, epsilon=5e-3, scale_cost=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.n_iters.is_cuda and res.converged.is_cuda and res.err.is_cuda
+    assert bool(res.converged)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_base_train_step_makes_no_host_read(cuda, grad_accum):
+    """A base step (in-batch FOT on K2, bf16 autocast, AdamW) under
+    ``set_sync_debug_mode("error")``: the step, its solves included, never
+    waits for the device."""
+    torch.manual_seed(0)
+    model = MultimodalOTFusion(depth=10, s2d_stem=True, variant="base").to(
+        device=cuda, memory_format=torch.channels_last_3d)
+    step = make_fusion_train_step(
+        model, make_optimizer(model.parameters(), 1e-5), in_batch_fot=True,
+        grad_accum=grad_accum, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    mri, pet = (torch.randn((4, 32, 32, 32, 1), device=cuda, generator=gen)
+                for _ in range(2))
+    labels = torch.tensor([0, 1, 0, 1], device=cuda)
+    step(mri, pet, labels, None, gen)  # warm-up
+    torch.cuda.synchronize()
+    before = sinkhorn_kernel.COUNTER.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        met = step(mri, pet, labels, None, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sinkhorn_kernel.COUNTER.count - before == grad_accum
+    assert torch.isfinite(met["loss"]) and float(met["ot_loss"]) > 0.0

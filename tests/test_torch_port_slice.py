@@ -224,7 +224,7 @@ def test_device_cuda_without_gpu_raises(cohort, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--grad-accum", "2"], ["--remat"],
+    ["--resume"], ["--profile-dir", "x"], ["--remat"],
     ["--mri-backbone", "swin_base_384"], ["--tp-size", "2"],
 ])
 def test_unported_flags_raise(cohort, tmp_path, flags):
@@ -251,7 +251,11 @@ def test_package_imports_no_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m.split('.')[0] == 'otfusion_tpu']\n"
         "assert not bad, bad\n"
+        "cli = {'otfusion_tpu_torch.cli.' + n for n in ('train_mri_pet_ot',"
+        " 'train_mmfusion', 'train_t1_t2_ot', 'train_unimodal')}\n"
+        "assert cli <= set(names), cli - set(names)\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
