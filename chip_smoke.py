@@ -30,7 +30,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It
          2`` (K2 once per microbatch), ``train_mmfusion`` and
          ``train_unimodal --grad-accum 2`` (no kernel), and
          ``train_t1_t2_ot`` on the cohort's folders linked under the T1/T2
-         class names.
+         class names;
+  7. serves the flagship's run through ``cli/predict.py`` (B16, all 192
+     subjects) with BatchNorm folded and unfolded, in bf16 (the run's
+     dtype) and in float32 (TF32 off): in float32 the same predictions and
+     probabilities within 1e-4; in bf16 the unfolded serve within 1e-2 of
+     the trainer's own bf16 eval of the same weights on the val subjects,
+     and each serve within a fixed bound of its float32 serve; no OT
+     kernel launched;
+  8. drives the run lifecycle at depth 18, 64^3, 1 epoch each: a plain-stem
+     unimodal run, served with ``--stem auto`` and ``as-trained`` (held as
+     in 7); the flagship from pretrained backbones (that run's
+     ``best_model`` and a seeded ``.pth``; every tensor grafted, as the
+     trainer's result counts), K1 = K2 = 2; the same flagship
+     ``--resume``d to epoch 2, K1 = K2 = 2; the base trainer with
+     ``--remat --grad-accum 2``, K2 once per microbatch;
+  9. runs one full-width flagship train step with remat off and on (peak
+     memory lower with it, the same loss, gradients within 1e-2 under
+     deterministic cuDNN), then the flagship ``--batch-size 16 --grad-accum
+     2 --remat`` for 1 epoch. The flagship's and base trainer's runs log
+     their checkpoint phase and the final flush's wait.
 
 Each kernel's ``bound_ms`` is the least time an H100 could take for the
 work of this run's inputs (``k1_bound``, ``k2_bound``); ``library_ms`` is
@@ -38,14 +57,16 @@ null, since no single PyTorch call computes a Sinkhorn or a GW solve.
 Every check that fails exits non-zero before the last line. The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it is the kernels' JSON summary (``launches`` counts every
-trainer's launches; K2's ``base_*`` keys are its times at the base inputs,
+run's launches; K2's ``base_*`` keys are its times at the base inputs,
 B = 8). ``--kernels-only`` stops after phase 5 and prints no result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -366,9 +387,9 @@ def phase_k1():
 
 
 def _drive(tag, module, argv):
-    """Run ``module.main(argv)`` (a trainer's CLI, in-process) with every
-    kernel's launch count zeroed just before and read just after; returns
-    (result, launches, seconds)."""
+    """Run ``module.main(argv)`` (a CLI, in-process) with every kernel's
+    launch count zeroed just before and read just after; returns (result,
+    launches, seconds)."""
     import torch
 
     from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
@@ -382,7 +403,7 @@ def _drive(tag, module, argv):
                 "gw": gw_kernel.COUNTER.count}
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    log(f"[{tag}] trainer {seconds:.2f} s; launches {launches}")
+    log(f"[{tag}] run {seconds:.2f} s; launches {launches}")
     return result, launches, seconds
 
 
@@ -446,8 +467,35 @@ def phase_flagship(data, work):
     check(bool(np.isfinite(tv).all()), "Tv is not finite")
     check(abs(float(tv.sum()) - 1.0) <= 1e-3,
           f"Tv mass {float(tv.sum())} is not 1 +- 1e-3")
+    _log_checkpoints("flagship", rows, result)
     log(f"[flagship] phase {time.perf_counter() - t0:.2f} s")
-    return launches
+    return launches, _final_eval(out, data, result)
+
+
+def _final_eval(out, data, result):
+    """The trainer's own bf16 eval of its best weights (the final pass):
+    {resolved MRI path: softmax probabilities} over the val subjects, in
+    ``val_split.json``'s order (the val loader's)."""
+    import numpy as np
+
+    logits = np.asarray(result["final_logits"], np.float64)
+    e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+    probs = e / e.sum(axis=-1, keepdims=True)
+    entries = json.loads((out / "val_split.json").read_text())
+    check(len(entries) == len(probs),
+          f"[flagship] {len(probs)} final logits for {len(entries)} val "
+          "subjects")
+    paths = [str((data.parent / e["mri_path"]).resolve()) for e in entries]
+    return dict(zip(paths, probs))
+
+
+def _log_checkpoints(tag, rows, result):
+    """The checkpoint phase of each epoch (the host snapshot; the writes
+    run behind) and the final flush's wait."""
+    log(f"[{tag}] checkpoint phase s "
+        f"{[r['phase_seconds']['checkpoint'] for r in rows]} (the host "
+        f"snapshot; the writes run behind); final flush waited "
+        f"{result['flush_seconds']:.3f} s")
 
 
 def phase_base(data, work):
@@ -468,6 +516,7 @@ def phase_base(data, work):
     check(launches["gw"] == 0, "K1 was launched by the base trainer")
     check(not (out / "t_feature.npy").exists(), "base saved t_feature.npy")
     rows = _check_rows("base", out, 2, result)
+    _log_checkpoints("base", rows, result)
     step = _base_step_without_sync()
     log(f"[base] phase {time.perf_counter() - t0:.2f} s")
     return launches, {"median_step_ms": [r["median_step_ms"] for r in rows],
@@ -587,6 +636,342 @@ def phase_small(data, work):
     return launches
 
 
+def _read_predictions(path):
+    """(rows, probabilities) of a predictions CSV."""
+    import numpy as np
+
+    rows = list(csv.DictReader(open(path)))
+    probs = np.asarray([[float(r[k]) for k in r if k.startswith("prob_")]
+                        for r in rows])
+    return rows, probs
+
+
+def _serve(tag, run_dir, data, out_csv, flags, n_expected):
+    """``cli/predict.py`` on ``run_dir``: no OT kernel, ``n_expected`` rows;
+    returns (rows, probabilities, result, peak GiB)."""
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.cli import predict
+
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, seconds = _drive(tag, predict, [
+        "--run-dir", str(run_dir), "--data-dir", str(data),
+        "--output", str(out_csv), *flags])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == {"sinkhorn": 0, "gw": 0},
+          f"[{tag}] serving launched an OT kernel: {launches}")
+    rows, probs = _read_predictions(out_csv)
+    check(len(rows) == n_expected,
+          f"[{tag}] {len(rows)} predictions for {n_expected} subjects")
+    check(bool(np.isfinite(probs).all()), f"[{tag}] probabilities not finite")
+    log(f"[{tag}] {len(rows)} predictions in {result['seconds']:.2f} s: "
+        f"{result['samples_per_s']:.2f} samples/s end to end, median "
+        f"forward {result['median_forward_ms']:.2f} ms per batch; peak "
+        f"memory {peak:.2f} GiB")
+    return rows, probs, result, peak
+
+
+def _prob_diff(tag, a, b):
+    """Identical ``pred`` columns; returns max |dprob| (logged)."""
+    (rows_a, p_a), (rows_b, p_b) = a, b
+    check([r["pred"] for r in rows_a] == [r["pred"] for r in rows_b],
+          f"[{tag}] the pred columns differ")
+    diff = float(abs(p_a - p_b).max())
+    log(f"[{tag}] identical preds; max |dprob| {diff:.3e}")
+    return diff
+
+
+def _witness_diff(tag, served, witness):
+    """Max |dprob| of ``served`` (rows, probabilities) against ``witness``
+    ({resolved MRI path: probabilities}) on the witness's subjects, and the
+    number of those whose ``pred`` differs."""
+    import numpy as np
+
+    rows, probs = served
+    at = {str(Path(r["mri_path"]).resolve()): i for i, r in enumerate(rows)}
+    check(all(p in at for p in witness),
+          f"[{tag}] the serve lacks a subject of the trainer's val split")
+    idx = [at[p] for p in witness]
+    want = np.stack(list(witness.values()))
+    diff = float(abs(probs[idx] - want).max())
+    flips = int((probs[idx].argmax(-1) != want.argmax(-1)).sum())
+    return diff, flips
+
+
+# bf16 serving is held to two fixed bounds. Against the trainer's own bf16
+# eval of the same weights (same eval step, dtype and batch size) the serve
+# as trained agrees to rounding. Against float32, each bf16 serve of this
+# script's 2-epoch depth-101 flagship read 3.0e-2 to 9.9e-2 on an H100 80GB
+# (the depth-18 unimodal run: 3.0e-5 to 6.7e-5).
+_WITNESS_DPROB = 1e-2
+_BF16_VS_FP32_DPROB = {"serve": 0.15, "uni-serve": 1e-3}
+
+
+def _serve_pair(tag, run, data, work, variants, witness=None):
+    """Serve ``run`` with each of two flag sets ``variants`` (name -> flags;
+    an exact rewrite of the model, then the model as trained), in bf16
+    (the run's dtype) and in float32 (TF32 off). The rewrite is exact, so
+    in float32 the predictions must be the same and the probabilities
+    within 1e-4. In bf16, the serve as trained must agree with
+    ``witness`` (the trainer's own bf16 eval, when given) within
+    ``_WITNESS_DPROB``, and each bf16 serve with its float32 serve within
+    ``_BF16_VS_FP32_DPROB[tag]``; bf16 prediction flips are counted.
+    Returns the numbers."""
+    import torch
+
+    fp32_run = work / f"{run.name}_fp32"
+    fp32_run.mkdir()
+    for name in ("best_model", "t_feature.npy"):
+        if (run / name).exists():
+            (fp32_run / name).symlink_to(run / name)
+    cfg = json.loads((run / "model_config.json").read_text())
+    (fp32_run / "model_config.json").write_text(
+        json.dumps({**cfg, "dtype": "float32"}))
+    out, served = {}, {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    for dtype, run_dir in (("bf16", run), ("fp32", fp32_run)):
+        on = dtype == "bf16" and tf32
+        torch.backends.cuda.matmul.allow_tf32 = bool(on and tf32[0])
+        torch.backends.cudnn.allow_tf32 = bool(on and tf32[1])
+        for name, flags in variants.items():
+            key = f"{tag}-{dtype}-{name}"
+            rows, probs, result, peak = _serve(
+                key, run_dir, data, work / f"{key}.csv", flags, 192)
+            served[dtype, name] = (rows, probs)
+            out[f"{dtype}-{name}"] = {
+                "samples_per_s": result["samples_per_s"],
+                "median_forward_ms": result["median_forward_ms"],
+                "peak_gib": peak}
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    shutil.rmtree(fp32_run)
+    first, second = variants
+    out["fp32_dprob"] = _prob_diff(f"{tag}-fp32", served["fp32", first],
+                                   served["fp32", second])
+    check(out["fp32_dprob"] <= 1e-4,
+          f"[{tag}-fp32] {first} moved a probability by "
+          f"{out['fp32_dprob']} in float32 (above 1e-4)")
+    if witness is not None:
+        diff, flips = _witness_diff(f"{tag}-bf16-{second}",
+                                    served["bf16", second], witness)
+        out["bf16_vs_trainer_eval"] = {"dprob": diff, "pred_flips": flips}
+        log(f"[{tag}] bf16 {second} against the trainer's own bf16 eval of "
+            f"{len(witness)} val subjects: max |dprob| {diff:.3e}, {flips} "
+            f"pred flips (bound {_WITNESS_DPROB})")
+        check(diff <= _WITNESS_DPROB,
+              f"[{tag}] the bf16 serve lies {diff} from the trainer's own "
+              f"bf16 eval of the same weights (above {_WITNESS_DPROB})")
+    a, b = served["bf16", first], served["bf16", second]
+    bound = _BF16_VS_FP32_DPROB[tag]
+    out["bf16_vs_fp32_dprob"] = {}
+    for name in variants:
+        err = float(abs(served["bf16", name][1]
+                        - served["fp32", name][1]).max())
+        out["bf16_vs_fp32_dprob"][name] = err
+        check(err <= bound, f"[{tag}] the bf16 {name} serve lies {err} "
+              f"from its float32 serve (above {bound})")
+    out["bf16_dprob"] = float(abs(a[1] - b[1]).max())
+    out["bf16_pred_flips"] = sum(ra["pred"] != rb["pred"]
+                                 for ra, rb in zip(a[0], b[0]))
+    log(f"[{tag}] bf16 {first} against {second}: max |dprob| "
+        f"{out['bf16_dprob']:.3e}, {out['bf16_pred_flips']} pred flips; "
+        f"against float32: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in out["bf16_vs_fp32_dprob"].items())
+        + f" (bound {bound})")
+    return out
+
+
+def phase_serve(data, work, final_eval):
+    """The flagship's run (depth 101, 128^3, bf16, s2d) served over all 192
+    subjects at B16, BatchNorm folded and unfolded (``_serve_pair``), the
+    unfolded bf16 serve held to the trainer's ``final_eval``."""
+    t0 = time.perf_counter()
+    out = _serve_pair("serve", work / "flagship", data, work, {
+        "fold": ["--fold-bn", "--batch-size", "16"],
+        "no-fold": ["--no-fold-bn", "--batch-size", "16"]}, final_eval)
+    log(f"[serve] phase {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _pth_backbone(path, depth):
+    """A seeded port ResNet3DBackbone (plain stem) saved as the reference
+    saves a checkpoint: ``module.`` keys in ``{"model_state_dict": ...}``;
+    returns the number of its tensors (BatchNorm counters left out)."""
+    import torch
+
+    from otfusion_tpu_torch.models.resnet3d import ResNet3DBackbone
+
+    torch.manual_seed(7)
+    state = ResNet3DBackbone(depth, s2d_stem=False).state_dict()
+    torch.save({"model_state_dict": {"module." + k: v
+                                     for k, v in state.items()}}, path)
+    return sum(not k.endswith("num_batches_tracked") for k in state)
+
+
+def phase_lifecycle(data, work):
+    """Depth 18, 64^3, 1 epoch each: a plain-stem unimodal run served with
+    both stems; the flagship from pretrained backbones, then resumed to
+    epoch 2; the base trainer with --remat --grad-accum 2."""
+    from otfusion_tpu_torch.cli import (
+        train_mri_pet_ot,
+        train_ot_attn,
+        train_unimodal,
+    )
+
+    small = ["--batch-size", "8", "--model-depth", "18",
+             "--target-shape", "64", "64", "64"]
+    launches = {}
+    t0 = time.perf_counter()
+    uni = work / "uni_plain"
+    result, got, _ = _drive("uni-plain", train_unimodal, [
+        *small, "--epochs", "1", "--no-s2d-stem", "--classes", "AD", "CN",
+        "--data-dir", str(data), "--save-path", str(uni)])
+    check(got == {"sinkhorn": 0, "gw": 0}, "[uni-plain] launched a kernel")
+    _check_rows("uni-plain", uni, 1, result)
+    check(not json.loads((uni / "model_config.json").read_text())[
+        "s2d_stem"], "[uni-plain] the run did not keep the plain stem")
+    serve = _serve_pair("uni-serve", uni, data, work, {
+        "auto": ["--stem", "auto"], "as-trained": ["--stem", "as-trained"]})
+
+    pth = work / "pet_pretrained.pth"
+    n_tensors = _pth_backbone(pth, 18)
+    flag = work / "pretrained"
+    flagship = [*small, "--data-dir", str(data), "--save-path", str(flag),
+                "--mri-pretrained", str(uni / "best_model"),
+                "--pet-pretrained", str(pth)]
+    result, got, _ = _drive("pretrained", train_ot_attn,
+                            [*flagship, "--epochs", "1"])
+    check(result["grafted"] == {"mri": n_tensors, "pet": n_tensors},
+          f"[pretrained] grafted {result['grafted']}, expected {n_tensors} "
+          "tensors each (every tensor, the plain stem rewritten)")
+    check(json.loads((flag / "model_config.json").read_text())["s2d_stem"],
+          "[pretrained] the run is not on the s2d stem")
+    check(got == {"sinkhorn": 2, "gw": 2},
+          f"[pretrained] launches {got}, expected K1 = K2 = 2")
+    _check_rows("pretrained", flag, 1, result)
+    launches["pretrained"] = got
+
+    result, got, _ = _drive("resume", train_ot_attn,
+                            [*flagship, "--epochs", "2", "--resume"])
+    rows = [json.loads(line) for line in
+            (flag / "metrics.jsonl").read_text().splitlines()]
+    check([r["epoch"] for r in rows] == [1, 2],
+          f"[resume] metrics.jsonl epochs {[r['epoch'] for r in rows]}")
+    check((flag / "results.txt").read_text().count(
+        "Best Validation Loss:") == 1,
+          "[resume] results.txt does not hold exactly one summary")
+    check(got == {"sinkhorn": 2, "gw": 2},
+          f"[resume] launches {got}, expected K1 = K2 = 2")
+    launches["resume"] = got
+
+    out = work / "base_remat"
+    result, got, _ = _drive("base-remat", train_mri_pet_ot, [
+        *small, "--epochs", "1", "--grad-accum", "2", "--remat",
+        "--data-dir", str(data), "--save-path", str(out)])
+    n_train = len(json.loads((out / "train_split.json").read_text()))
+    solves = _micro_total(n_train, 8, 2, 1)
+    check(got == {"sinkhorn": solves, "gw": 0},
+          f"[base-remat] launches {got}, expected K2 = {solves}, K1 = 0")
+    _check_rows("base-remat", out, 1, result)
+    launches["base_remat"] = got
+    log(f"[lifecycle] phase {time.perf_counter() - t0:.2f} s")
+    return launches, serve
+
+
+def phase_remat_step():
+    """One flagship train step at full width (depth 101, 128^3, bf16, B8)
+    from the same weights, batch and dropout seed, remat off then on. The
+    gradients are compared on a step with cuDNN's deterministic algorithms
+    (the default ones sum in an order that varies from run to run); peak
+    memory and step time are read over 5 steps in the default mode."""
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import time_ms
+    from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
+    from otfusion_tpu_torch.train.steps import make_fusion_train_step
+    from otfusion_tpu_torch.train.train_state import make_optimizer
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    init = MultimodalOTFusion(depth=101, s2d_stem=True).state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mri, pet = (torch.randn((8, 128, 128, 128, 1), device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+    labels = torch.arange(8, device="cuda") % 2
+    tv = torch.full((2048, 2048), 1.0 / 2048**2, device="cuda")
+    cudnn = torch.backends.cudnn
+    runs = {}
+    for remat in (False, True):
+        model = MultimodalOTFusion(depth=101, s2d_stem=True, remat=remat)
+        model.load_state_dict(init)
+        model = model.to(device="cuda", memory_format=torch.channels_last_3d)
+        step = make_fusion_train_step(
+            model, make_optimizer(model.parameters(), 1e-5),
+            compute_dtype=torch.bfloat16)
+        modes = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            met = step(mri, pet, labels, tv,
+                       torch.Generator(device="cuda").manual_seed(1))
+            loss = float(met["loss"])
+        finally:
+            cudnn.deterministic, cudnn.benchmark = modes
+        grads = torch.cat([p.grad.float().flatten()
+                           for p in model.parameters()]).cpu()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(mri, pet, labels, tv, gen), 5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[remat] = {"loss": loss, "peak_gib": peak, "step_ms": ms}
+        log(f"[remat-step] remat {remat}: loss {loss:.6f}; peak memory "
+            f"{peak:.2f} GiB; step {ms:.2f} ms (median of 5)")
+        del model, step, met
+        runs[remat]["grads"] = grads
+        torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    rel_loss = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    rel_grad = float((remat.pop("grads") - plain["grads"]).norm()
+                     / plain.pop("grads").norm())
+    log(f"[remat-step] loss relative difference {rel_loss:.3e}; gradient "
+        f"relative L2 difference {rel_grad:.3e} (deterministic cuDNN); "
+        f"phase {time.perf_counter() - t0:.2f} s")
+    check(remat["peak_gib"] < plain["peak_gib"],
+          "[remat-step] remat did not lower the peak memory")
+    check(rel_loss <= 1e-5, f"[remat-step] losses differ by {rel_loss}")
+    check(rel_grad <= 1e-2, f"[remat-step] gradients differ by {rel_grad}")
+    return {"plain": plain, "remat": remat, "rel_loss": rel_loss,
+            "rel_grad": rel_grad}
+
+
+def phase_remat_trainer(data, work):
+    """The flagship at the JAX package's memory-saving setting, --batch-size
+    16 --grad-accum 2 --remat (depth 101, 128^3, bf16), for 1 epoch."""
+    import torch
+
+    from otfusion_tpu_torch.cli import train_ot_attn
+
+    t0 = time.perf_counter()
+    out = work / "flagship_remat"
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, _ = _drive("remat-trainer", train_ot_attn, [
+        "--epochs", "1", "--batch-size", "16", "--grad-accum", "2",
+        "--remat", "--data-dir", str(data), "--save-path", str(out)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == {"sinkhorn": 2, "gw": 2},
+          f"[remat-trainer] launches {launches}, expected one K1 and one "
+          "K2 per coupling (2)")
+    rows = _check_rows("remat-trainer", out, 1, result)
+    log(f"[remat-trainer] median step {rows[0]['median_step_ms']:.1f} ms "
+        f"(B16 as 2 x 8); peak memory {peak:.2f} GiB; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    shutil.rmtree(out)
+    return launches, {"median_step_ms": rows[0]["median_step_ms"],
+                      "peak_gib": peak}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -622,14 +1007,26 @@ def main(argv=None) -> None:
         log(f"[cohort] synthetic 2 x 96 at 64^3 "
             f"({time.perf_counter() - t1:.2f} s)")
         torch.cuda.reset_peak_memory_stats()
-        runs = {"flagship": phase_flagship(data, work)}
+        runs = {}
+        runs["flagship"], final_eval = phase_flagship(data, work)
         runs["base"], base = phase_base(data, work)
         runs.update(phase_small(data, work))
         log(f"[trainers] peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        serve = phase_serve(data, work, final_eval)
+        shutil.rmtree(work / "flagship")
+        lifecycle, uni_serve = phase_lifecycle(data, work)
+        runs.update(lifecycle)
+        remat_step = phase_remat_step()
+        runs["remat_trainer"], remat_trainer = phase_remat_trainer(data,
+                                                                   work)
     total = {k: sum(r[k] for r in runs.values()) for k in ("sinkhorn", "gw")}
     log(f"[trainers] launches per run {json.dumps(runs)}; total {total}")
     log(f"[base] {json.dumps(base)}")
+    log("[lifecycle] " + json.dumps({"serve": serve,
+                                     "uni_serve": uni_serve,
+                                     "remat_step": remat_step,
+                                     "remat_trainer": remat_trainer}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_solve")

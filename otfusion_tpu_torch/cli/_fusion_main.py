@@ -134,6 +134,11 @@ def fusion_main(*, variant: str, description: str, default_save_path: str,
         latest_every=args.latest_every,
         feature_batch_size=args.feature_batch_size,
         eval_batch_size=args.eval_batch_size,
+        mri_pretrained=args.mri_pretrained,
+        pet_pretrained=args.pet_pretrained,
+        remat=args.remat,
+        profile_dir=args.profile_dir,
+        resume=args.resume,
         config_lines={
             "Dataset": args.data_dir,
             "Train/Val Split": f"{1 - args.val_fraction:.1%}/"

@@ -63,12 +63,18 @@ def add_common_args(parser: argparse.ArgumentParser, *, epochs: int,
                              "optimiser update per batch with averaged "
                              "gradients; a batch N does not divide runs "
                              "unaccumulated")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume from <save-path>/latest: model, "
+                             "optimiser, LR scheduler, epoch and best "
+                             "loss; results.txt and metrics.jsonl are "
+                             "appended to")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler trace of epoch 1's "
+                             "train phase into this directory")
     # Accepted for CLI parity; each raises NotImplementedError when set.
-    parser.add_argument("--resume", action="store_true")
     parser.add_argument("--num-devices", type=str, default="default")
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--tp-size", type=int, default=1)
-    parser.add_argument("--profile-dir", type=str, default=None)
 
 
 def add_ot_args(parser: argparse.ArgumentParser) -> None:
@@ -85,26 +91,30 @@ def add_ot_args(parser: argparse.ArgumentParser) -> None:
                         help="Apply the raw plan pet_feat @ T.t() instead "
                              "of the column-normalised barycentric "
                              "projection")
+    parser.add_argument("--mri-pretrained", type=str, default=None,
+                        help="Pretrained MRI backbone: a port checkpoint "
+                             "directory (a train_unimodal run's "
+                             "best_model) or a torch .pth/.pt file")
+    parser.add_argument("--pet-pretrained", type=str, default=None,
+                        help="Pretrained PET backbone (as "
+                             "--mri-pretrained)")
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute each 3D ResNet block's "
+                             "activations in the backward "
+                             "(torch.utils.checkpoint): less activation "
+                             "memory for larger batches")
     # Accepted for CLI parity; each raises NotImplementedError when set.
-    parser.add_argument("--mri-pretrained", type=str, default=None)
-    parser.add_argument("--pet-pretrained", type=str, default=None)
     parser.add_argument("--mri-backbone", type=str, default="")
     parser.add_argument("--pet-backbone", type=str, default="")
-    parser.add_argument("--remat", action="store_true")
 
 
 # flag -> (value meaning "not set", ROADMAP item that ports it)
 _UNPORTED = {
-    "resume": (False, "--resume, pretrained import and --remat"),
-    "mri_pretrained": (None, "--resume, pretrained import and --remat"),
-    "pet_pretrained": (None, "--resume, pretrained import and --remat"),
-    "remat": (False, "--resume, pretrained import and --remat"),
     "mri_backbone": ("", "the model zoo"),
     "pet_backbone": ("", "the model zoo"),
     "num_devices": ("default", "parallelism"),
     "multihost": (False, "parallelism"),
     "tp_size": (1, "parallelism"),
-    "profile_dir": (None, "--resume, pretrained import and --remat"),
 }
 
 

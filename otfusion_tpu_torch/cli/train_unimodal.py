@@ -148,6 +148,8 @@ def main(argv=None):
         compute_dtype=resolve_dtype(args.dtype),
         num_workers=args.num_workers,
         latest_every=args.latest_every,
+        profile_dir=args.profile_dir,
+        resume=args.resume,
         config_lines={
             "Dataset": args.data_dir,
             "Train/Val Split": f"{1 - args.val_fraction:.1%}/"

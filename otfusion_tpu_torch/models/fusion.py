@@ -11,6 +11,10 @@ Backbones: only the inline ResNet3D (empty spec). Returns the same dict of
 eight entries as the JAX module; losses live in ``train.losses``. Dropout
 draws from the ``generator`` passed to ``forward``; the module's training
 flag (``model.train()`` / ``model.eval()``) plays flax's ``train``.
+``remat`` goes to both backbones only (see ``models.resnet3d``): remat
+never wraps the fusion head or the base variant's in-step FOT, so a
+recompute launches no solve. Serving folds BatchNorm in place with
+``utils.checkpoint.fold_state_for_serving``.
 """
 
 from __future__ import annotations
@@ -60,15 +64,15 @@ class _FusionMLP(nn.Module):
         return self.dense1(x)
 
 
-def build_fusion_backbone(spec: str, depth: int,
-                          s2d_stem: bool = False) -> ResNet3DBackbone:
+def build_fusion_backbone(spec: str, depth: int, s2d_stem: bool = False,
+                          remat: bool = False) -> ResNet3DBackbone:
     """The fusion-side backbone for a registry ``spec`` (empty = the
     inline ResNet3D at ``depth``)."""
     if spec:
         raise NotImplementedError(
             f"registry backbone {spec!r}: the model zoo is not ported yet "
             "(ROADMAP.md, open item: the model zoo)")
-    return ResNet3DBackbone(depth, s2d_stem=s2d_stem)
+    return ResNet3DBackbone(depth, s2d_stem=s2d_stem, remat=remat)
 
 
 class MultimodalOTFusion(nn.Module):
@@ -79,7 +83,7 @@ class MultimodalOTFusion(nn.Module):
                  attention_dropout: float = 0.1,
                  variant: str = "per_epoch_attn", mri_backbone: str = "",
                  pet_backbone: str = "", s2d_stem: bool = False,
-                 raw_plan: bool = False):
+                 raw_plan: bool = False, remat: bool = False):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant: {variant}")
@@ -87,8 +91,11 @@ class MultimodalOTFusion(nn.Module):
         self.depth = depth
         self.s2d_stem = s2d_stem
         self.raw_plan = raw_plan
-        self.mri_backbone = build_fusion_backbone(mri_backbone, depth, s2d_stem)
-        self.pet_backbone = build_fusion_backbone(pet_backbone, depth, s2d_stem)
+        self.remat = remat
+        self.mri_backbone = build_fusion_backbone(
+            mri_backbone, depth, s2d_stem, remat=remat)
+        self.pet_backbone = build_fusion_backbone(
+            pet_backbone, depth, s2d_stem, remat=remat)
         d_mri = self.mri_backbone.out_dim
         d_pet = self.pet_backbone.out_dim
         self.mri2pet = _ProjectionMLP(d_mri, d_pet, projection_dropout)

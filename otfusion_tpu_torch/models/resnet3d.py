@@ -26,15 +26,31 @@ Public layout as in JAX: the backbone takes ``(B, D, H, W, C)`` volumes
 and permutes once (the permuted tensor is channels-last-3d in memory).
 ``ResNet3DClassifier`` (the unimodal trainer's model) is the backbone plus a
 linear ``fc`` head.
+
+Two options of the JAX module (``fold_bn`` is a constructor field there,
+as flax modules are immutable; here it is an in-place switch):
+
+  * ``remat=True`` recomputes each residual block's activations in the
+    backward (``torch.utils.checkpoint``, JAX's per-block ``nn.remat``) when
+    the module trains with grad enabled. Parameter names do not change, and
+    the recompute leaves the BatchNorm running statistics alone, so they
+    move once per forward, as in JAX;
+  * ``fold_bn_()`` (serving only) switches a built backbone in place to
+    the folded layout: every conv gets a bias and every BatchNorm becomes
+    ``nn.Identity``; the weights come from
+    ``utils.checkpoint.fold_conv_bn_params``. A folded model refuses to
+    run in training mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from otfusion_tpu_torch.models.attention import dense
@@ -106,15 +122,25 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
     """BatchNorm3d with flax's statistics: eps 1e-5, running averages with
     momentum 0.9 on the old value (torch momentum 0.1), and the *biased*
     batch variance folded into ``running_var`` (torch folds the unbiased
-    one). Normalisation itself is torch's (biased variance, as flax)."""
+    one). Normalisation itself is torch's (biased variance, as flax).
+
+    ``frozen_stats`` (set only around a remat recompute) normalises with
+    the batch statistics as a training forward does, through the same op
+    on copies of the running buffers, so the buffers keep the one update
+    the block's first forward made."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.frozen_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.frozen_stats:
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
         keep = 1.0 - self.momentum
         # torch updates (and autograd keeps) this copy in place:
         # keep*old + m*var*n/(n-1); the buffer gets the biased refold.
@@ -132,6 +158,49 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
 def _conv(cin, cout, kernel, stride=1, padding=0):
     return nn.Conv3d(cin, cout, kernel, stride=stride, padding=padding,
                      bias=False)
+
+
+# The conv each BatchNorm follows, by child name: ``bnK`` -> ``convK``, and
+# in a ``downsample`` Sequential ``1`` -> ``0``.
+_CONV_OF_BN = {"bn1": "conv1", "bn2": "conv2", "bn3": "conv3", "1": "0"}
+
+
+def conv_name_of_bn(bn_name: str) -> str:
+    """Dotted name of the conv that BatchNorm ``bn_name`` (a dotted module
+    name, e.g. ``layer1.0.bn2`` or ``layer2.0.downsample.1``) follows."""
+    head, _, last = bn_name.rpartition(".")
+    if last not in _CONV_OF_BN:
+        raise ValueError(f"{bn_name}: not a ResNet3D BatchNorm")
+    return f"{head}.{_CONV_OF_BN[last]}" if head else _CONV_OF_BN[last]
+
+
+def _fold_layout(module: nn.Module) -> None:
+    """In place: each conv followed by a BatchNorm gets a zero bias, and the
+    BatchNorm becomes ``nn.Identity`` (the folded weights are loaded
+    after)."""
+    for name, child in list(module.named_children()):
+        if isinstance(child, FlaxBatchNorm3d):
+            conv = getattr(module, _CONV_OF_BN[name])
+            conv.bias = nn.Parameter(torch.zeros(
+                conv.out_channels, device=conv.weight.device,
+                dtype=conv.weight.dtype))
+            setattr(module, name, nn.Identity())
+        else:
+            _fold_layout(child)
+
+
+@contextlib.contextmanager
+def _frozen_stats(block: nn.Module):
+    """Around a block's remat recompute: its BatchNorms leave their running
+    statistics alone."""
+    norms = [m for m in block.modules() if isinstance(m, FlaxBatchNorm3d)]
+    for m in norms:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen_stats = False
 
 
 class BasicBlock3D(nn.Module):
@@ -196,12 +265,14 @@ class ResNet3DBackbone(nn.Module):
     from (B, D, H, W, C) volumes."""
 
     def __init__(self, depth: int = 50, s2d_stem: bool = False,
-                 in_channels: int = 1):
+                 in_channels: int = 1, remat: bool = False):
         super().__init__()
         layers, kind = DEPTH_CONFIGS[depth]
         block = BasicBlock3D if kind == "basic" else Bottleneck3D
         self.depth = depth
         self.s2d_stem = s2d_stem
+        self.remat = remat
+        self.fold_bn = False
         if s2d_stem:
             self.conv1 = _conv(4 * in_channels, 64, (3, 4, 4))
         else:
@@ -224,7 +295,27 @@ class ResNet3DBackbone(nn.Module):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                         nonlinearity="relu")
 
+    def fold_bn_(self) -> "ResNet3DBackbone":
+        """Switch to the folded layout in place (biased convs, no
+        BatchNorm); load ``fold_conv_bn_params`` weights after."""
+        if not self.fold_bn:
+            _fold_layout(self)
+            self.fold_bn = True
+        return self
+
+    def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                block, x, use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _frozen_stats(block)))
+        return block(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold_bn and self.training:
+            raise ValueError("fold_bn is inference-only: training needs "
+                             "live BatchNorm batch statistics (call "
+                             ".eval())")
         if self.s2d_stem:
             x = space_to_depth_hw(x)
         x = x.permute(0, 4, 1, 2, 3)
@@ -232,7 +323,9 @@ class ResNet3DBackbone(nn.Module):
             x = F.pad(x, (2, 1, 2, 1, 1, 1))
         x = F.relu(self.bn1(self.conv1(x)))
         x = self.maxpool(x)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = self._block(block, x)
         x = x.mean(dim=(2, 3, 4))
         return x.to(torch.promote_types(x.dtype, torch.float32))
 

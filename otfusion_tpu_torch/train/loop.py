@@ -14,6 +14,14 @@ a coupling service or saves ``t_feature.npy``.
 
 Unimodal: the same epoch rows and checkpoints with Adam and no LR schedule.
 
+Run lifecycle, as in JAX: checkpoints are written behind the next epoch's
+work (``utils.checkpoint``) and flushed before the best-model restore;
+``resume`` continues from ``latest/`` (model, optimiser, plateau scheduler,
+epoch, best loss and summary), appending to ``results.txt`` and
+``metrics.jsonl``; ``mri_pretrained``/``pet_pretrained`` graft backbones
+before the optimiser is built; ``profile_dir`` takes a ``torch.profiler``
+trace of epoch 1's train phase.
+
 The confusion-matrix and t-SNE PNGs of the JAX loops are not written yet
 (ROADMAP.md, open item: the PNG artifacts).
 """
@@ -54,13 +62,23 @@ from otfusion_tpu_torch.train.train_state import (
     make_optimizer,
     set_learning_rate,
 )
+from otfusion_tpu_torch.utils.checkpoint import (
+    checkpoint_exists,
+    flush_checkpoints,
+    load_metadata,
+    restore_backbone,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from otfusion_tpu_torch.utils.reporting import ResultsWriter
-
-CHECKPOINT_FILE = "checkpoint.pt"
 
 # Steps in flight before their metrics are read: reading a loss waits for
 # the device, so the host keeps this many steps queued ahead of the read.
 _PIPELINE_LAG = 2
+
+# Epoch e of a run seeded s draws dropout from seed STRIDE * (s + 1) + e, so
+# the streams of nearby seeds and epochs never coincide.
+_DROPOUT_SEED_STRIDE = 1_000_003
 
 # Largest forward-only batch x voxel product the automatic eval / feature
 # batch picks: 16 x 128^3 (explicit sizes are never capped).
@@ -110,7 +128,7 @@ class _PhaseClock:
         return time.time() - self.t0
 
 
-class _StepTimer:
+class StepTimer:
     """Per-step times: CUDA events on a GPU (read once, after the epoch),
     the host clock on the CPU."""
 
@@ -166,25 +184,66 @@ def _rewrite_last_jsonl(path, record, offset):
         f.write(json.dumps(record, default=float) + "\n")
 
 
-def _atomic_save(obj, path: str) -> None:
-    tmp = path + ".tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+class _MaybeProfile:
+    """A ``torch.profiler`` trace of epoch 1's train phase into
+    ``profile_dir/epoch1.trace.json`` (Chrome trace format), when
+    ``profile_dir`` is set."""
+
+    def __init__(self, profile_dir, epoch, device: torch.device):
+        self.active = profile_dir is not None and epoch == 1
+        if self.active:
+            self.path = os.path.join(profile_dir, "epoch1.trace.json")
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+
+    def __enter__(self):
+        if self.active:
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            self.prof.__exit__(*exc)
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self.prof.export_chrome_trace(self.path)
+            print(f"Profile of the epoch's train phase: {self.path}")
+        return False
 
 
-def save_checkpoint(directory: str, model, meta: dict,
-                    optimizer=None) -> None:
-    os.makedirs(directory, exist_ok=True)
-    _atomic_save({"model": model.state_dict(),
-                  "optimizer": optimizer.state_dict() if optimizer else None,
-                  "meta": meta}, os.path.join(directory, CHECKPOINT_FILE))
+def _resolve_stem(s2d_stem, resume, save_path):
+    """Tri-state stem policy: ``None`` takes the space-to-depth stem for a
+    fresh run and the stem recorded in ``model_config.json`` on a resume
+    (optimiser moments cannot be rewritten between stem layouts); an
+    explicit value is kept, and raises when it contradicts a resumed run's
+    recorded stem."""
+    recorded = None
+    cfg_path = os.path.join(save_path, "model_config.json")
+    if resume and os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            recorded = bool(json.load(f).get("s2d_stem", False))
+    elif resume and os.path.isdir(os.path.join(save_path, "latest")):
+        recorded = False  # a run from before the manifest: plain stem
+    if s2d_stem is None:
+        return recorded if recorded is not None else True
+    if recorded is not None and bool(s2d_stem) != recorded:
+        raise ValueError(
+            f"--resume run at {save_path} was trained with "
+            f"s2d_stem={recorded}; the optimiser state cannot be "
+            "rewritten between stem layouts — drop the stem flag to "
+            "keep the recorded one")
+    return bool(s2d_stem)
 
 
-def restore_checkpoint(directory: str, model) -> dict:
-    ckpt = torch.load(os.path.join(directory, CHECKPOINT_FILE),
-                      map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt["model"])
-    return ckpt["meta"]
+def _flush_before_restore() -> float:
+    """Drain the write-behind checkpoints; returns (and logs) the seconds
+    waited."""
+    t0 = time.perf_counter()
+    flush_checkpoints()
+    waited = time.perf_counter() - t0
+    print(f"Checkpoint writes flushed: waited {waited:.3f} s", flush=True)
+    return waited
 
 
 def _save_tv(save_path, tv):
@@ -198,7 +257,7 @@ def _run_train_epoch(train_step, loader, device, extra=()):
     """One pass of ``train_step(*batch, *extra)`` over ``loader`` (labels
     last in each batch); returns (mean loss, accuracy, median step ms)."""
     total_loss, total_correct, total_n = 0.0, 0, 0
-    timer = _StepTimer(device)
+    timer = StepTimer(device)
     pending = deque()
 
     def _drain():
@@ -245,7 +304,7 @@ def _run_eval_epoch(eval_step, loader, device, extra=(), collect=None):
     return total_loss / total_n, total_correct / total_n, preds, targets, kept
 
 
-def _place(model, device: torch.device):
+def place_model(model, device: torch.device):
     """The model on ``device``; channels-last-3d on a GPU (cuDNN's fast
     3D-convolution layout)."""
     if device.type == "cuda":
@@ -296,6 +355,11 @@ def run_fusion_training(
     progress: bool = True,
     num_workers: int = 8,
     latest_every: int = 1,
+    mri_pretrained: Optional[str] = None,
+    pet_pretrained: Optional[str] = None,
+    remat: bool = False,
+    profile_dir: Optional[str] = None,
+    resume: bool = False,
 ) -> Dict[str, object]:
     if not len(val_idx) or not len(train_idx):
         raise ValueError(
@@ -305,8 +369,7 @@ def run_fusion_training(
     results_file = os.path.join(save_path, "results.txt")
     model_dir = os.path.join(save_path, "best_model")
     latest_dir = os.path.join(save_path, "latest")
-    # A fresh run takes the space-to-depth stem unless told otherwise.
-    s2d_stem = True if s2d_stem is None else bool(s2d_stem)
+    s2d_stem = _resolve_stem(s2d_stem, resume, save_path)
 
     cache = _VolumeCache(target_shape, num_workers=num_workers)
     train_samples = [samples[i] for i in train_idx]
@@ -330,8 +393,8 @@ def run_fusion_training(
         num_classes=num_classes, depth=model_depth,
         projection_dropout=projection_dropout, variant=variant,
         mri_backbone=mri_backbone, pet_backbone=pet_backbone,
-        s2d_stem=s2d_stem, raw_plan=raw_plan)
-    model = _place(model, device)
+        s2d_stem=s2d_stem, raw_plan=raw_plan, remat=remat)
+    model = place_model(model, device)
     _write_json(os.path.join(save_path, "model_config.json"), {
         "kind": "fusion", "variant": variant,
         "model_depth": model_depth,
@@ -345,6 +408,10 @@ def run_fusion_training(
         "class_names": class_names,
         "class_names_b": class_names_b,
     })
+
+    grafted = {side: restore_backbone(model, source, f"{side}_backbone")
+               for side, source in (("mri", mri_pretrained),
+                                    ("pet", pet_pretrained)) if source}
 
     optimizer = make_optimizer(model.parameters(), lr)
     train_step = make_fusion_train_step(
@@ -363,11 +430,23 @@ def run_fusion_training(
             fot_epsilon=ot_epsilon)
 
     writer = ResultsWriter(results_file, results_title, config_lines or {},
-                           style="fusion")
+                           style="fusion", append=resume)
     scheduler = ReduceLROnPlateau(lr, factor=0.5, patience=5)
     best_val_loss = float("inf")
     best_summary = None
-    generator = torch.Generator(device=device).manual_seed(seed + 1)
+    generator = torch.Generator(device=device)
+    start_epoch = 1
+    if resume and checkpoint_exists(latest_dir):
+        meta = load_metadata(latest_dir) or {}
+        restore_checkpoint(latest_dir, model, optimizer)
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        best_val_loss = float(meta.get("best_val_loss", float("inf")))
+        best_summary = meta.get("best_summary")
+        scheduler.lr = float(meta.get("lr", lr))
+        scheduler.best = float(meta.get("sched_best", float("inf")))
+        scheduler.bad_epochs = int(meta.get("sched_bad_epochs", 0))
+        set_learning_rate(optimizer, scheduler.lr)
+        print(f"Resumed from {latest_dir} at epoch {start_epoch}")
 
     def compute_tv():
         return svc.compute(prefetch(iter(feat_loader)))
@@ -376,10 +455,14 @@ def run_fusion_training(
 
     history = []
     jsonl_path = os.path.join(save_path, "metrics.jsonl")
-    for epoch in range(1, epochs + 1):
+    for epoch in range(start_epoch, epochs + 1):
         clock = _PhaseClock()
-        train_loss, train_acc, step_ms = _run_train_epoch(
-            train_step, train_loader, device, (tv, generator))
+        # the epoch's dropout stream depends on (seed, epoch) alone, as JAX
+        # folds the epoch into its key: a resumed epoch draws the same masks
+        generator.manual_seed(_DROPOUT_SEED_STRIDE * (seed + 1) + epoch)
+        with _MaybeProfile(profile_dir, epoch, device):
+            train_loss, train_acc, step_ms = _run_train_epoch(
+                train_step, train_loader, device, (tv, generator))
         clock("train")
         val_loss, val_acc, preds, targets, _ = _run_eval_epoch(
             eval_step, val_loader, device, (tv,))
@@ -441,6 +524,7 @@ def run_fusion_training(
     writer.summary(best_val_loss, best_summary, model_dir)
 
     # Best model: restore, recompute the plan it serves with, evaluate.
+    flush_seconds = _flush_before_restore()
     restore_checkpoint(model_dir, model)
     final_tv = compute_tv() if needs_tv else None
     _, _, preds, targets, logits = _run_eval_epoch(
@@ -456,6 +540,8 @@ def run_fusion_training(
         "final_preds": preds,
         "final_targets": targets,
         "final_logits": logits,
+        "flush_seconds": flush_seconds,
+        "grafted": grafted,
     }
 
 
@@ -481,13 +567,16 @@ def run_unimodal_training(
     config_lines: Optional[Dict[str, object]] = None,
     num_workers: int = 8,
     latest_every: int = 1,
+    profile_dir: Optional[str] = None,
+    resume: bool = False,
 ) -> Dict[str, object]:
     """Train ``ResNet3DClassifier`` on (path, label) samples with Adam and
     no LR schedule; per epoch train, eval, ``results.txt`` and
-    ``metrics.jsonl`` rows, best and latest checkpoints. After the last
-    epoch the best weights are restored and evaluated once more, with their
-    pooled features. The reference's confusion-matrix and t-SNE PNGs are
-    not written yet (ROADMAP §2 item 3)."""
+    ``metrics.jsonl`` rows, best and latest checkpoints (``resume``
+    continues from ``latest/``). After the last epoch the best weights are
+    restored and evaluated once more, with their pooled features. The
+    reference's confusion-matrix and t-SNE PNGs are not written yet
+    (ROADMAP §2 item 3)."""
     if not len(val_idx) or not len(train_idx):
         raise ValueError(
             f"empty split: {len(train_idx)} train / {len(val_idx)} val "
@@ -497,7 +586,7 @@ def run_unimodal_training(
     model_dir = os.path.join(save_path, "best_model")
     latest_dir = os.path.join(save_path, "latest")
     num_classes = len(class_names)
-    s2d_stem = True if s2d_stem is None else bool(s2d_stem)
+    s2d_stem = _resolve_stem(s2d_stem, resume, save_path)
 
     cache = _VolumeCache(target_shape, num_workers=num_workers)
     feed = feed_dtype_for(compute_dtype)
@@ -511,7 +600,7 @@ def run_unimodal_training(
         shuffle=False, cache=cache, feed_dtype=feed)
 
     torch.manual_seed(seed)
-    model = _place(ResNet3DClassifier(depth=model_depth,
+    model = place_model(ResNet3DClassifier(depth=model_depth,
                                       num_classes=num_classes,
                                       s2d_stem=s2d_stem), device)
     _write_json(os.path.join(save_path, "model_config.json"), {
@@ -529,15 +618,25 @@ def run_unimodal_training(
 
     writer = ResultsWriter(results_file,
                            "3D ResNet Training Results - ADNI MRI Dataset",
-                           config_lines or {}, style="unimodal")
+                           config_lines or {}, style="unimodal",
+                           append=resume)
     best_val_loss = float("inf")
     best_summary = None
+    start_epoch = 1
+    if resume and checkpoint_exists(latest_dir):
+        meta = load_metadata(latest_dir) or {}
+        restore_checkpoint(latest_dir, model, optimizer)
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        best_val_loss = float(meta.get("best_val_loss", float("inf")))
+        best_summary = meta.get("best_summary")
+        print(f"Resumed from {latest_dir} at epoch {start_epoch}")
     history = []
     jsonl_path = os.path.join(save_path, "metrics.jsonl")
-    for epoch in range(1, epochs + 1):
+    for epoch in range(start_epoch, epochs + 1):
         clock = _PhaseClock()
-        train_loss, train_acc, step_ms = _run_train_epoch(
-            train_step, train_loader, device)
+        with _MaybeProfile(profile_dir, epoch, device):
+            train_loss, train_acc, step_ms = _run_train_epoch(
+                train_step, train_loader, device)
         clock("train")
         val_loss, val_acc, preds, targets, _ = _run_eval_epoch(
             eval_step, val_loader, device)
@@ -580,6 +679,7 @@ def run_unimodal_training(
 
     writer.summary(best_val_loss, best_summary, model_dir)
 
+    flush_seconds = _flush_before_restore()
     restore_checkpoint(model_dir, model)
     _, _, preds, targets, feats = _run_eval_epoch(
         eval_step, val_loader, device, collect="features")
@@ -591,4 +691,5 @@ def run_unimodal_training(
         "final_preds": preds,
         "final_targets": targets,
         "final_features": feats,
+        "flush_seconds": flush_seconds,
     }

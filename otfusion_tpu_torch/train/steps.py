@@ -137,7 +137,9 @@ def make_fusion_eval_step(model, *, compute_dtype=None) -> Callable:
 
 def make_feature_extract_step(model, *, compute_dtype=None) -> Callable:
     """Backbone-only eval-mode forward for the per-epoch coupling:
-    returns (mri_feat, pet_feat), fp32."""
+    returns (mri_feat, pet_feat), fp32. The backbones are the model's own,
+    so they carry its ``remat`` (as JAX builds them with the model's), which
+    has nothing to recompute without grad."""
 
     @torch.no_grad()
     def step(mri, pet):

@@ -11,6 +11,9 @@ or ``ResNet3DBackbone``. Layouts:
   MHA out        (heads, head_dim, embed)  -> (embed, heads*head_dim)
   BatchNorm      scale/bias/mean/var       -> weight/bias/running_mean/_var
   LayerNorm      scale/bias                -> weight/bias
+
+A BatchNorm-folded ResNet3D tree (``fold_conv_bn_params``: biased convs, no
+BatchNorm) maps onto the port's folded layout (``ResNet3DBackbone.fold_bn_``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def _t(a) -> torch.Tensor:
 
 def _conv(tree) -> torch.Tensor:
     return _t(np.transpose(np.asarray(tree["kernel"]), (4, 3, 0, 1, 2)))
+
+
+def _conv_bn(out, conv, bn, params, stats) -> None:
+    """A flax ``_ConvBN`` subtree: the conv and its BatchNorm, or the
+    folded conv's bias."""
+    out[f"{conv}.weight"] = _conv(params["Conv_0"])
+    if "BatchNorm_0" in params:
+        _bn(out, bn, params["BatchNorm_0"], stats["BatchNorm_0"])
+    else:
+        out[f"{conv}.bias"] = _t(params["Conv_0"]["bias"])
 
 
 def _bn(out, prefix, params, stats) -> None:
@@ -57,31 +70,30 @@ def _depth_of(params) -> int:
 def resnet3d_state_dict_from_jax(params: Dict[str, Any],
                                  batch_stats: Dict[str, Any],
                                  prefix: str = "") -> Dict[str, torch.Tensor]:
-    """State dict of ``ResNet3DBackbone`` from the JAX backbone subtrees."""
+    """State dict of ``ResNet3DBackbone`` from the JAX backbone subtrees
+    (``batch_stats`` may be empty for a folded tree)."""
     depth = _depth_of(params)
     layers, kind = DEPTH_CONFIGS[depth]
     block_cls = "BasicBlock3D" if kind == "basic" else "Bottleneck3D"
     n_convs = 2 if kind == "basic" else 3
     out: Dict[str, torch.Tensor] = {}
     p = prefix + "." if prefix else ""
-    out[f"{p}conv1.weight"] = _conv(params["_ConvBN_0"]["Conv_0"])
-    _bn(out, f"{p}bn1", params["_ConvBN_0"]["BatchNorm_0"],
-        batch_stats["_ConvBN_0"]["BatchNorm_0"])
+    stats = batch_stats or {}
+    _conv_bn(out, f"{p}conv1", f"{p}bn1", params["_ConvBN_0"],
+             stats.get("_ConvBN_0"))
     g = 0
     for stage, n_blocks in enumerate(layers):
         for i in range(n_blocks):
             bp = params[f"{block_cls}_{g}"]
-            bs = batch_stats[f"{block_cls}_{g}"]
+            bs = stats.get(f"{block_cls}_{g}", {})
             t = f"{p}layer{stage + 1}.{i}"
             for c in range(n_convs):
-                out[f"{t}.conv{c + 1}.weight"] = _conv(bp[f"_ConvBN_{c}"]["Conv_0"])
-                _bn(out, f"{t}.bn{c + 1}", bp[f"_ConvBN_{c}"]["BatchNorm_0"],
-                    bs[f"_ConvBN_{c}"]["BatchNorm_0"])
+                _conv_bn(out, f"{t}.conv{c + 1}", f"{t}.bn{c + 1}",
+                         bp[f"_ConvBN_{c}"], bs.get(f"_ConvBN_{c}"))
             ds = f"_ConvBN_{n_convs}"
             if ds in bp:
-                out[f"{t}.downsample.0.weight"] = _conv(bp[ds]["Conv_0"])
-                _bn(out, f"{t}.downsample.1", bp[ds]["BatchNorm_0"],
-                    bs[ds]["BatchNorm_0"])
+                _conv_bn(out, f"{t}.downsample.0", f"{t}.downsample.1",
+                         bp[ds], bs.get(ds))
             g += 1
     return out
 
@@ -110,7 +122,7 @@ def fusion_state_dict_from_jax(params: Dict[str, Any],
     out: Dict[str, torch.Tensor] = {}
     for side in ("mri_backbone", "pet_backbone"):
         out.update(resnet3d_state_dict_from_jax(
-            params[side], batch_stats[side], prefix=side))
+            params[side], (batch_stats or {}).get(side), prefix=side))
     for name in ("mri2pet", "pet2mri", "mri_fusion", "pet_fusion"):
         _dense(out, f"{name}.dense0", params[name]["Dense_0"])
         _dense(out, f"{name}.dense1", params[name]["Dense_1"])
@@ -130,7 +142,7 @@ def classifier_state_dict_from_jax(params: Dict[str, Any],
     """State dict of the port's ``ResNet3DClassifier`` from the JAX
     ``ResNet3DClassifier`` params and batch_stats trees."""
     out = resnet3d_state_dict_from_jax(params["backbone"],
-                                       batch_stats["backbone"],
+                                       (batch_stats or {}).get("backbone"),
                                        prefix="backbone")
     _dense(out, "fc", params["fc"])
     return out

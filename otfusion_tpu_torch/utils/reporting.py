@@ -12,11 +12,19 @@ class ResultsWriter:
     """Writes the reference's fixed-width results.txt."""
 
     def __init__(self, path: str | Path, title: str, config: Dict[str, object],
-                 style: str = "unimodal"):
+                 style: str = "unimodal", append: bool = False):
         """``style``: "unimodal" emits "Best Epoch: ..." in the summary;
-        "fusion" emits "Best Metrics | Epoch: ..."."""
+        "fusion" emits "Best Metrics | Epoch: ...". ``append=True`` (a
+        resumed run) keeps the file and strips its trailing summary block,
+        so the file keeps one header, the rows and one summary."""
         self.path = Path(path)
         self.style = style
+        if append and self.path.exists():
+            text = self.path.read_text()
+            idx = text.find("\n" + "=" * 80 + "\nBest Validation Loss:")
+            if idx != -1:
+                self.path.write_text(text[: idx + 1])
+            return
         with open(self.path, "w") as f:
             f.write(title + "\n")
             f.write("=" * 80 + "\n")

@@ -4,10 +4,11 @@ A CUDA kernel has no interpret mode, so these tests need the card: they are
 marked ``cuda`` and skip without one. ``chip_smoke.py`` holds the kernels to
 their plain versions at the main path's shapes; these tests add ragged
 shapes, masks, both band routes of K2, every cluster size of K1, bitwise
-reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs and
-a base train step that must not read the device from the host. They import
-no JAX, so on a machine with a GPU they run without the repository's
-conftest:
+reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs, a
+base train step that must not read the device from the host, and a
+checkpoint snapshot of the card's tensors that must not alias them. They
+import no JAX, so on a machine with a GPU they run without the
+repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
@@ -287,3 +288,33 @@ def test_base_train_step_makes_no_host_read(cuda, grad_accum):
         torch.cuda.set_sync_debug_mode("default")
     assert sinkhorn_kernel.COUNTER.count - before == grad_accum
     assert torch.isfinite(met["loss"]) and float(met["ot_loss"]) > 0.0
+
+
+def test_checkpoint_snapshot_of_card_tensors_is_not_aliased(cuda, tmp_path):
+    """``save_checkpoint`` copies the card's tensors into pinned host memory
+    asynchronously and waits for the copies: an in-place update on the card
+    right after the call (as the next ``optimizer.step()`` makes) must not
+    reach the background write, and a later restore brings back the saved
+    values."""
+    from otfusion_tpu_torch.utils.checkpoint import (
+        flush_checkpoints,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(1024, 1024).to(cuda)
+    opt = make_optimizer(model.parameters(), 1e-3)
+    model(torch.randn(8, 1024, device=cuda)).sum().backward()
+    opt.step()
+    want = {k: v.clone() for k, v in model.state_dict().items()}
+    moment = opt.state[model.weight]["exp_avg"].clone()
+    save_checkpoint(tmp_path / "latest", model, {"epoch": 1}, optimizer=opt)
+    with torch.no_grad():
+        model.weight.mul_(-3.0)
+    opt.state[model.weight]["exp_avg"].fill_(7.0)
+    flush_checkpoints()
+    restore_checkpoint(tmp_path / "latest", model, opt)
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, want[key]), key
+    assert torch.equal(opt.state[model.weight]["exp_avg"], moment)

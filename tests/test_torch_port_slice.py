@@ -224,8 +224,8 @@ def test_device_cuda_without_gpu_raises(cohort, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--profile-dir", "x"], ["--remat"],
-    ["--mri-backbone", "swin_base_384"], ["--tp-size", "2"],
+    ["--mri-backbone", "swin_base_384"], ["--pet-backbone", "unetr_vit"],
+    ["--num-devices", "2"], ["--multihost"], ["--tp-size", "2"],
 ])
 def test_unported_flags_raise(cohort, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
