@@ -14,6 +14,7 @@ import torch
 from otfusion_tpu_torch.cli.common import (
     add_common_args,
     add_ot_args,
+    check_volume_backbones,
     reject_unported,
     resolve_device,
     resolve_dtype,
@@ -42,6 +43,7 @@ def fusion_main(*, variant: str, description: str, default_save_path: str,
     add_ot_args(parser)
     args = parser.parse_args(argv)
     reject_unported(args)
+    check_volume_backbones(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # Fixed batch shapes: let cuDNN pick the fastest 3D-conv algorithms.
@@ -125,6 +127,8 @@ def fusion_main(*, variant: str, description: str, default_save_path: str,
         ot_epsilon=args.ot_epsilon,
         gw_max_iterations=args.gw_max_iterations,
         sinkhorn_max_iterations=args.sinkhorn_max_iterations,
+        mri_backbone=args.mri_backbone,
+        pet_backbone=args.pet_backbone,
         s2d_stem=args.s2d_stem,
         grad_accum=args.grad_accum,
         raw_plan=args.raw_reference_plan,

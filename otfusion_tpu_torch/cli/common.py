@@ -2,8 +2,9 @@
 single-device trainers need): argparse groups with the JAX CLI's names and
 defaults, device resolution, seeding and split resolution.
 
-Flags of the JAX CLI whose feature is not ported yet are still accepted,
-and raise ``NotImplementedError`` when set (``reject_unported``).
+Flags of the JAX CLI whose feature is not ported yet (parallelism) are
+still accepted, and raise ``NotImplementedError`` when set
+(``reject_unported``).
 """
 
 from __future__ import annotations
@@ -103,15 +104,29 @@ def add_ot_args(parser: argparse.ArgumentParser) -> None:
                              "activations in the backward "
                              "(torch.utils.checkpoint): less activation "
                              "memory for larger batches")
-    # Accepted for CLI parity; each raises NotImplementedError when set.
-    parser.add_argument("--mri-backbone", type=str, default="")
-    parser.add_argument("--pet-backbone", type=str, default="")
+    parser.add_argument("--mri-backbone", type=str, default="",
+                        help="Registry backbone of the MRI side (e.g. "
+                             "medicalnet-10, unetr_vit, resnet3d-18); "
+                             "empty = the 3D ResNet at --model-depth")
+    parser.add_argument("--pet-backbone", type=str, default="",
+                        help="Registry backbone of the PET side (as "
+                             "--mri-backbone)")
+
+
+def check_volume_backbones(args: argparse.Namespace) -> None:
+    """Build each registry backbone named by ``--mri-backbone`` /
+    ``--pet-backbone`` on the meta device at ``--target-shape``, before any
+    data is read: a 2D family (the volume trainers feed (B, D, H, W, 1)
+    volumes) or a volume its geometry cannot take raises ``ValueError``."""
+    from otfusion_tpu_torch.models.registry import feature_width
+
+    for spec in (args.mri_backbone, args.pet_backbone):
+        if spec:
+            feature_width(spec, args.target_shape)
 
 
 # flag -> (value meaning "not set", ROADMAP item that ports it)
 _UNPORTED = {
-    "mri_backbone": ("", "the model zoo"),
-    "pet_backbone": ("", "the model zoo"),
     "num_devices": ("default", "parallelism"),
     "multihost": (False, "parallelism"),
     "tp_size": (1, "parallelism"),

@@ -6,11 +6,14 @@ best checkpoint (``best_model/``) and, for the flagship, the final coupling
 (``t_feature.npy``); predicts over a directory of (paired) NIfTI volumes;
 writes ``predictions.csv`` (paths, the label the class folder gives, the
 predicted label, per-class softmax probabilities) and prints the metrics
-block. At load, ``--stem auto`` rewrites a plain stem onto the
-space-to-depth stem (exact, ``models.resnet3d.s2d_stem_kernel``) and
-``--fold-bn`` folds every eval-mode BatchNorm into its conv
-(``utils.checkpoint.fold_state_for_serving``). Serving launches no OT
-kernel: the flagship's attention reads the stored ``Tv``.
+block. The backbones are built as ``model_config.json`` records them
+(registry specs sized at its ``target_shape``). At load, ``--stem auto``
+rewrites a plain stem of the default ResNet3D backbones onto the
+space-to-depth stem (exact, ``models.resnet3d.s2d_stem_kernel``; never a
+registry backbone's) and ``--fold-bn`` folds every eval-mode BatchNorm of
+the conv backbones (ResNet3D, MedicalNet, Res2Net; Swin and UNETR have
+none) into its conv (``utils.checkpoint.fold_state_for_serving``). Serving
+launches no OT kernel: the flagship's attention reads the stored ``Tv``.
 
     python -m otfusion_tpu_torch.cli.predict --run-dir runs/flagship \\
         --data-dir datasets/ADNI/MRI-PET [--output predictions.csv]
@@ -42,7 +45,10 @@ from otfusion_tpu_torch.data.loader import (
 )
 from otfusion_tpu_torch.metrics.classification import classification_metrics
 from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
-from otfusion_tpu_torch.models.resnet3d import ResNet3DClassifier
+from otfusion_tpu_torch.models.resnet3d import (
+    FoldableBackbone,
+    ResNet3DClassifier,
+)
 from otfusion_tpu_torch.train.loop import StepTimer, place_model
 from otfusion_tpu_torch.train.steps import (
     make_fusion_eval_step,
@@ -173,7 +179,8 @@ def main(argv=None) -> dict:
                 variant=cfg["variant"],
                 mri_backbone=cfg.get("mri_backbone", ""),
                 pet_backbone=cfg.get("pet_backbone", ""),
-                s2d_stem=s2d, raw_plan=bool(cfg.get("raw_plan", False)))
+                s2d_stem=s2d, raw_plan=bool(cfg.get("raw_plan", False)),
+                mri_shape=target_shape, pet_shape=target_shape)
 
         tv = None
         if cfg["variant"] == "per_epoch_attn":
@@ -214,10 +221,11 @@ def main(argv=None) -> dict:
         trained, model = model, build(True)
         _graft_s2d(trained, model, backbones)
     model = place_model(model.eval(), device)
-    if args.fold_bn:
+    if args.fold_bn and any(isinstance(m, FoldableBackbone)
+                            for m in model.modules()):
         fold_state_for_serving(model)
-        print("Serving with BatchNorm folded into the conv weights "
-              "(--no-fold-bn disables)")
+        print("Serving with BatchNorm folded into the conv weights of the "
+              "conv backbones (--no-fold-bn disables)")
     eval_step = make_step(model, compute_dtype=compute_dtype)
 
     preds, targets, probs = [], [], []

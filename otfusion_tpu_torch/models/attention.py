@@ -9,10 +9,12 @@ lecun-normal (truncated) with zero biases.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 LAYER_NORM_EPS = 1e-6
@@ -28,13 +30,39 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def dense(in_features: int, out_features: int) -> nn.Linear:
+def remat(fn, *args, generator: torch.Generator | None = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward. The recompute draws from ``generator`` as
+    the forward did (its state is saved here and put back around the
+    recompute, then restored), so dropout and drop-path masks match."""
+    state = generator.get_state() if generator is not None else None
+
+    @contextlib.contextmanager
+    def replay():
+        if generator is None:
+            yield
+            return
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), replay()))
+
+
+def dense(in_features: int, out_features: int, bias: bool = True
+          ) -> nn.Linear:
     """``nn.Linear`` initialised as flax ``nn.Dense``: lecun-normal
     (truncated at 2 std) kernel, zero bias."""
-    layer = nn.Linear(in_features, out_features)
+    layer = nn.Linear(in_features, out_features, bias=bias)
     std = math.sqrt(1.0 / in_features) / 0.87962566103423978
     nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std)
-    nn.init.zeros_(layer.bias)
+    if bias:
+        nn.init.zeros_(layer.bias)
     return layer
 
 

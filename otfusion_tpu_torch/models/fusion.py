@@ -7,14 +7,21 @@
     mapping applied to pet_fused when a plan is given;
   * ``variant="mmfusion"`` — the no-OT baseline.
 
-Backbones: only the inline ResNet3D (empty spec). Returns the same dict of
-eight entries as the JAX module; losses live in ``train.losses``. Dropout
-draws from the ``generator`` passed to ``forward``; the module's training
-flag (``model.train()`` / ``model.eval()``) plays flax's ``train``.
-``remat`` goes to both backbones only (see ``models.resnet3d``): remat
-never wraps the fusion head or the base variant's in-step FOT, so a
-recompute launches no solve. Serving folds BatchNorm in place with
-``utils.checkpoint.fold_state_for_serving``.
+Backbones: the inline ResNet3D at ``depth`` (empty spec) or any registry
+name (``models.registry``) on either side, so the two feature widths may
+differ and the feature plan ``Tv`` is (d_pet, d_mri). A registry backbone
+needs its side's input shape (``mri_shape`` / ``pet_shape``: (D, H, W) for
+volumes, (H, W) for images), which sizes its parameters and width, and so
+the head. A backbone returning (tokens, pooled) is reduced to pooled.
+
+Returns the same dict of eight entries as the JAX module; losses live in
+``train.losses``. Dropout (and Swin's drop-path) draws from the
+``generator`` passed to ``forward``; the module's training flag
+(``model.train()`` / ``model.eval()``) plays flax's ``train``. ``remat`` and
+``s2d_stem`` go to the default ResNet3D backbones only, as in JAX (see
+``models.resnet3d``): remat never wraps the fusion head or the base
+variant's in-step FOT, so a recompute launches no solve. Serving folds
+BatchNorm in place with ``utils.checkpoint.fold_state_for_serving``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from otfusion_tpu_torch.models.attention import (
     dense,
     dropout,
 )
+from otfusion_tpu_torch.models.registry import build_backbone
 from otfusion_tpu_torch.models.resnet3d import ResNet3DBackbone
 from otfusion_tpu_torch.ops.fot import apply_feature_coupling
 
@@ -64,15 +72,23 @@ class _FusionMLP(nn.Module):
         return self.dense1(x)
 
 
-def build_fusion_backbone(spec: str, depth: int, s2d_stem: bool = False,
-                          remat: bool = False) -> ResNet3DBackbone:
-    """The fusion-side backbone for a registry ``spec`` (empty = the
-    inline ResNet3D at ``depth``)."""
-    if spec:
-        raise NotImplementedError(
-            f"registry backbone {spec!r}: the model zoo is not ported yet "
-            "(ROADMAP.md, open item: the model zoo)")
-    return ResNet3DBackbone(depth, s2d_stem=s2d_stem, remat=remat)
+def build_fusion_backbone(spec: str, depth: int, input_shape=None,
+                          s2d_stem: bool = False,
+                          remat: bool = False) -> nn.Module:
+    """The fusion-side backbone for a registry ``spec`` at ``input_shape``
+    (empty spec = the inline ResNet3D at ``depth``, which alone takes
+    ``s2d_stem`` and ``remat``)."""
+    if not spec:
+        return ResNet3DBackbone(depth, s2d_stem=s2d_stem, remat=remat)
+    if input_shape is None:
+        raise ValueError(f"registry backbone {spec!r} needs the input shape "
+                         "it will see (it sizes its parameters)")
+    return build_backbone(spec, input_shape)
+
+
+def _pooled(features):
+    """A (tokens, pooled) return reduced to pooled."""
+    return features[1] if isinstance(features, tuple) else features
 
 
 class MultimodalOTFusion(nn.Module):
@@ -83,7 +99,8 @@ class MultimodalOTFusion(nn.Module):
                  attention_dropout: float = 0.1,
                  variant: str = "per_epoch_attn", mri_backbone: str = "",
                  pet_backbone: str = "", s2d_stem: bool = False,
-                 raw_plan: bool = False, remat: bool = False):
+                 raw_plan: bool = False, remat: bool = False,
+                 mri_shape=None, pet_shape=None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant: {variant}")
@@ -93,9 +110,9 @@ class MultimodalOTFusion(nn.Module):
         self.raw_plan = raw_plan
         self.remat = remat
         self.mri_backbone = build_fusion_backbone(
-            mri_backbone, depth, s2d_stem, remat=remat)
+            mri_backbone, depth, mri_shape, s2d_stem, remat=remat)
         self.pet_backbone = build_fusion_backbone(
-            pet_backbone, depth, s2d_stem, remat=remat)
+            pet_backbone, depth, pet_shape, s2d_stem, remat=remat)
         d_mri = self.mri_backbone.out_dim
         d_pet = self.pet_backbone.out_dim
         self.mri2pet = _ProjectionMLP(d_mri, d_pet, projection_dropout)
@@ -107,13 +124,18 @@ class MultimodalOTFusion(nn.Module):
                                                 dropout=attention_dropout)
         self.fc = dense(d_mri + d_pet, num_classes)
 
+    def features(self, mri, pet, generator=None):
+        """(mri_feat, pet_feat): the two backbones' pooled features."""
+        return (_pooled(self.mri_backbone(mri, generator)),
+                _pooled(self.pet_backbone(pet, generator)))
+
     def forward(self, mri, pet, t_feature=None,
                 generator: torch.Generator | None = None) -> dict:
-        """mri, pet: (B, D, H, W, 1) volumes; t_feature: (d_pet, d_mri)
-        feature plan Tv (required for "per_epoch_attn", optional for
-        "base", unused for "mmfusion")."""
-        mri_feat = self.mri_backbone(mri)
-        pet_feat = self.pet_backbone(pet)
+        """mri, pet: (B, D, H, W, 1) volumes (or (B, H, W, C) images for a
+        2D backbone); t_feature: (d_pet, d_mri) feature plan Tv (required
+        for "per_epoch_attn", optional for "base", unused for
+        "mmfusion")."""
+        mri_feat, pet_feat = self.features(mri, pet, generator)
         mri_to_pet = self.mri2pet(mri_feat, generator)
         pet_to_mri = self.pet2mri(pet_feat, generator)
         mri_fused = self.mri_fusion(torch.cat([mri_feat, mri_to_pet], dim=1),

@@ -155,13 +155,17 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
         return y
 
 
+class FlaxBatchNorm2d(FlaxBatchNorm3d):
+    """``FlaxBatchNorm3d``'s statistics on (B, C, H, W) images."""
+
+
 def _conv(cin, cout, kernel, stride=1, padding=0):
     return nn.Conv3d(cin, cout, kernel, stride=stride, padding=padding,
                      bias=False)
 
 
-# The conv each BatchNorm follows, by child name: ``bnK`` -> ``convK``, and
-# in a ``downsample`` Sequential ``1`` -> ``0``.
+# The conv each BatchNorm of the inline ResNet3D follows, by child name:
+# ``bnK`` -> ``convK``, and in a ``downsample`` Sequential ``1`` -> ``0``.
 _CONV_OF_BN = {"bn1": "conv1", "bn2": "conv2", "bn3": "conv3", "1": "0"}
 
 
@@ -174,19 +178,67 @@ def conv_name_of_bn(bn_name: str) -> str:
     return f"{head}.{_CONV_OF_BN[last]}" if head else _CONV_OF_BN[last]
 
 
-def _fold_layout(module: nn.Module) -> None:
-    """In place: each conv followed by a BatchNorm gets a zero bias, and the
-    BatchNorm becomes ``nn.Identity`` (the folded weights are loaded
-    after)."""
-    for name, child in list(module.named_children()):
-        if isinstance(child, FlaxBatchNorm3d):
-            conv = getattr(module, _CONV_OF_BN[name])
-            conv.bias = nn.Parameter(torch.zeros(
-                conv.out_channels, device=conv.weight.device,
-                dtype=conv.weight.dtype))
-            setattr(module, name, nn.Identity())
-        else:
-            _fold_layout(child)
+def _child(module: nn.Module, name: str) -> nn.Module | None:
+    try:
+        return module.get_submodule(name)
+    except AttributeError:
+        return None
+
+
+def bn_conv_pairs(module: nn.Module) -> list[tuple[str, str]]:
+    """(conv, BatchNorm) dotted names of every BatchNorm of ``module``,
+    paired by dataflow: each module class names, in its ``CONV_OF_BN``
+    map, the conv each of its own BatchNorms follows (never by index).
+    Raises on a BatchNorm that no map pairs with a conv."""
+    pairs = []
+    for path, sub in module.named_modules():
+        prefix = f"{path}." if path else ""
+        for bn, conv in getattr(sub, "CONV_OF_BN", {}).items():
+            if not isinstance(_child(sub, bn), FlaxBatchNorm3d):
+                continue  # e.g. a block without a downsample
+            if not isinstance(_child(sub, conv), nn.modules.conv._ConvNd):
+                raise ValueError(f"{prefix}{bn} has no conv partner at "
+                                 f"{prefix}{conv}: unfoldable layout")
+            pairs.append((prefix + conv, prefix + bn))
+    paired = {bn for _, bn in pairs}
+    for path, sub in module.named_modules():
+        if isinstance(sub, FlaxBatchNorm3d) and path not in paired:
+            raise ValueError(f"BatchNorm {path} has no conv partner: "
+                             "unfoldable layout")
+    return pairs
+
+
+def fold_layout_(module: nn.Module) -> None:
+    """In place: each conv followed by a BatchNorm (``bn_conv_pairs``)
+    gets a zero bias, and the BatchNorm becomes ``nn.Identity`` (the folded
+    weights are loaded after)."""
+    for conv_name, bn_name in bn_conv_pairs(module):
+        conv = module.get_submodule(conv_name)
+        conv.bias = nn.Parameter(torch.zeros(
+            conv.out_channels, device=conv.weight.device,
+            dtype=conv.weight.dtype))
+        head, _, last = bn_name.rpartition(".")
+        setattr(module.get_submodule(head), last, nn.Identity())
+
+
+class FoldableBackbone(nn.Module):
+    """A conv backbone with a serving layout: ``fold_bn_()`` switches it in
+    place to biased convs and no BatchNorm (load folded weights after);
+    a folded backbone refuses to train."""
+
+    fold_bn = False
+
+    def fold_bn_(self):
+        if not self.fold_bn:
+            fold_layout_(self)
+            self.fold_bn = True
+        return self
+
+    def _check_mode(self) -> None:
+        if self.fold_bn and self.training:
+            raise ValueError("fold_bn is inference-only: training needs "
+                             "live BatchNorm batch statistics (call "
+                             ".eval())")
 
 
 @contextlib.contextmanager
@@ -207,6 +259,8 @@ class BasicBlock3D(nn.Module):
     """Two 3x3x3 convs with a residual connection."""
 
     expansion = 1
+    CONV_OF_BN = {"bn1": "conv1", "bn2": "conv2",
+                  "downsample.1": "downsample.0"}
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
@@ -233,6 +287,8 @@ class Bottleneck3D(nn.Module):
     """1x1x1 -> 3x3x3(stride) -> 1x1x1 bottleneck, expansion 4."""
 
     expansion = 4
+    CONV_OF_BN = {"bn1": "conv1", "bn2": "conv2", "bn3": "conv3",
+                  "downsample.1": "downsample.0"}
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
@@ -260,9 +316,11 @@ class Bottleneck3D(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet3DBackbone(nn.Module):
+class ResNet3DBackbone(FoldableBackbone):
     """Headless 3D ResNet returning pooled (B, 512*expansion) fp32 features
     from (B, D, H, W, C) volumes."""
+
+    CONV_OF_BN = {"bn1": "conv1"}
 
     def __init__(self, depth: int = 50, s2d_stem: bool = False,
                  in_channels: int = 1, remat: bool = False):
@@ -272,7 +330,6 @@ class ResNet3DBackbone(nn.Module):
         self.depth = depth
         self.s2d_stem = s2d_stem
         self.remat = remat
-        self.fold_bn = False
         if s2d_stem:
             self.conv1 = _conv(4 * in_channels, 64, (3, 4, 4))
         else:
@@ -295,14 +352,6 @@ class ResNet3DBackbone(nn.Module):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                         nonlinearity="relu")
 
-    def fold_bn_(self) -> "ResNet3DBackbone":
-        """Switch to the folded layout in place (biased convs, no
-        BatchNorm); load ``fold_conv_bn_params`` weights after."""
-        if not self.fold_bn:
-            _fold_layout(self)
-            self.fold_bn = True
-        return self
-
     def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if self.remat and self.training and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(
@@ -311,11 +360,10 @@ class ResNet3DBackbone(nn.Module):
                                     _frozen_stats(block)))
         return block(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fold_bn and self.training:
-            raise ValueError("fold_bn is inference-only: training needs "
-                             "live BatchNorm batch statistics (call "
-                             ".eval())")
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``generator`` is unused (the backbone draws no randomness); every
+        backbone of the zoo takes it."""
+        self._check_mode()
         if self.s2d_stem:
             x = space_to_depth_hw(x)
         x = x.permute(0, 4, 1, 2, 3)

@@ -12,6 +12,10 @@ best model is evaluated once more. ``base`` solves its plan inside every
 train step (kernel K2 on CUDA) and ``mmfusion`` has none, so neither builds
 a coupling service or saves ``t_feature.npy``.
 
+Registry backbones (``mri_backbone`` / ``pet_backbone``) are built for
+volumes of ``target_shape``, which sets their widths, so ``Tv`` is
+(d_pet, d_mri); a pretrained ``.pth`` is grafted by its side's family.
+
 Unimodal: the same epoch rows and checkpoints with Adam and no LR schedule.
 
 Run lifecycle, as in JAX: checkpoints are written behind the next epoch's
@@ -305,11 +309,16 @@ def _run_eval_epoch(eval_step, loader, device, extra=(), collect=None):
 
 
 def place_model(model, device: torch.device):
-    """The model on ``device``; channels-last-3d on a GPU (cuDNN's fast
-    3D-convolution layout)."""
+    """The model on ``device``; on a GPU its convolution weights in cuDNN's
+    fast layouts (channels-last-3d for 3D convs, channels-last for 2D)."""
+    model = model.to(device)
     if device.type == "cuda":
-        return model.to(device=device, memory_format=torch.channels_last_3d)
-    return model.to(device)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv3d):
+                m.to(memory_format=torch.channels_last_3d)
+            elif isinstance(m, torch.nn.Conv2d):
+                m.to(memory_format=torch.channels_last)
+    return model
 
 
 def _write_json(path, payload) -> None:
@@ -393,7 +402,8 @@ def run_fusion_training(
         num_classes=num_classes, depth=model_depth,
         projection_dropout=projection_dropout, variant=variant,
         mri_backbone=mri_backbone, pet_backbone=pet_backbone,
-        s2d_stem=s2d_stem, raw_plan=raw_plan, remat=remat)
+        s2d_stem=s2d_stem, raw_plan=raw_plan, remat=remat,
+        mri_shape=target_shape, pet_shape=target_shape)
     model = place_model(model, device)
     _write_json(os.path.join(save_path, "model_config.json"), {
         "kind": "fusion", "variant": variant,
@@ -409,9 +419,11 @@ def run_fusion_training(
         "class_names_b": class_names_b,
     })
 
-    grafted = {side: restore_backbone(model, source, f"{side}_backbone")
-               for side, source in (("mri", mri_pretrained),
-                                    ("pet", pet_pretrained)) if source}
+    grafted = {side: restore_backbone(model, source, f"{side}_backbone",
+                                      backbone=spec)
+               for side, source, spec in (
+                   ("mri", mri_pretrained, mri_backbone),
+                   ("pet", pet_pretrained, pet_backbone)) if source}
 
     optimizer = make_optimizer(model.parameters(), lr)
     train_step = make_fusion_train_step(

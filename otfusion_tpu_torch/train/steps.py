@@ -137,15 +137,16 @@ def make_fusion_eval_step(model, *, compute_dtype=None) -> Callable:
 
 def make_feature_extract_step(model, *, compute_dtype=None) -> Callable:
     """Backbone-only eval-mode forward for the per-epoch coupling:
-    returns (mri_feat, pet_feat), fp32. The backbones are the model's own,
-    so they carry its ``remat`` (as JAX builds them with the model's), which
+    returns (mri_feat, pet_feat), fp32, the pooled feature of a backbone
+    that returns (tokens, pooled). The backbones are the model's own, so
+    they carry its ``remat`` (as JAX builds them with the model's), which
     has nothing to recompute without grad."""
 
     @torch.no_grad()
     def step(mri, pet):
         model.eval()
         with _autocast(mri.device, compute_dtype):
-            return model.mri_backbone(mri), model.pet_backbone(pet)
+            return model.features(mri, pet)
 
     return step
 

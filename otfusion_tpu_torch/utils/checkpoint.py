@@ -15,11 +15,11 @@ the read helpers drain their directory's write first, and
 worker's error.
 
 Also here: the pretrained-backbone graft (``restore_backbone``), the
-serving BatchNorm fold (``fold_conv_bn_params``, ``fold_state_for_serving``)
+serving BatchNorm fold (``fold_conv_bn_params`` for the inline ResNet3D,
+``fold_zoo_conv_bn`` for any conv backbone, ``fold_state_for_serving``)
 and the plain -> space-to-depth stem rewrite (``rewrite_stem_params``).
 Left out of the port: the pre-round-4 remat key migration (the port has no
-such checkpoints), the multi-host gather (parallelism) and the model zoo's
-fold (``fold_zoo_conv_bn``, with the zoo).
+such checkpoints) and the multi-host gather (parallelism).
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ import torch
 from torch import nn
 
 from otfusion_tpu_torch.models.resnet3d import (
-    ResNet3DBackbone,
+    FoldableBackbone,
+    bn_conv_pairs,
     conv_name_of_bn,
     s2d_stem_kernel,
 )
@@ -218,20 +219,22 @@ def restore_checkpoint(directory: str | Path, model: nn.Module,
 
 
 def restore_backbone(model: nn.Module, source: str | Path,
-                     target_module: str) -> int:
+                     target_module: str, backbone: str = "") -> int:
     """Graft a pretrained backbone into ``model.<target_module>`` (e.g.
     ``mri_backbone``), in place; returns the number of tensors loaded.
 
     ``source`` is a port checkpoint directory of a ``ResNet3DClassifier``
     (its ``backbone`` module: a ``train_unimodal`` run's ``best_model``),
-    or a torch ``.pth``/``.pt`` file, grafted by
-    intersecting keys (``utils.torch_import.graft_torch_backbone``). A plain
-    stem goes onto a space-to-depth target through ``rewrite_stem_params``.
+    or a torch ``.pth``/``.pt`` file of the registry family ``backbone``
+    ('' = the inline ResNet3D), grafted by intersecting keys
+    (``utils.torch_import.graft_torch_backbone``). A plain stem goes onto a
+    space-to-depth target through ``rewrite_stem_params``.
     """
     if str(source).endswith((".pth", ".pt")):
         from otfusion_tpu_torch.utils.torch_import import graft_torch_backbone
 
-        return graft_torch_backbone(model, source, target_module)
+        return graft_torch_backbone(model, source, target_module,
+                                    backbone=backbone)
     directory = Path(source).resolve()
     _wait_dir(directory)
     if not (_recover_dir(directory) / CHECKPOINT_FILE).exists():
@@ -252,45 +255,70 @@ def restore_backbone(model: nn.Module, source: str | Path,
     return n
 
 
-def fold_conv_bn_params(state_dict: Dict[str, torch.Tensor],
-                        eps: float = 1e-5) -> Dict[str, torch.Tensor]:
-    """Fold every eval-mode BatchNorm of a ResNet3D state dict (a backbone,
-    a classifier or a fusion model) into the conv it follows:
+def _fold_pairs(state_dict: Dict[str, torch.Tensor], pairs,
+                eps: float) -> Dict[str, torch.Tensor]:
+    """Fold each (conv, BatchNorm) pair of ``state_dict`` (dotted module
+    names) in eval mode:
 
         g = weight / sqrt(running_var + eps)
         conv.weight' = conv.weight * g      (per output channel)
         conv.bias'   = bias - running_mean * g
 
-    on the tensors' device, in float32 or wider. Returns the state dict of
-    folded model (``ResNet3DBackbone.fold_bn_``): biased convs, no
-    BatchNorm entries."""
+    on the tensors' device, in float32 or wider; the BatchNorm entries are
+    dropped."""
     out = OrderedDict(state_dict)
-    for key in [k for k in state_dict if k.endswith(".running_mean")]:
-        bn = key[:-len(".running_mean")]
-        conv = conv_name_of_bn(bn)
+    for conv, bn in pairs:
         w = state_dict[f"{conv}.weight"]
         dt = torch.promote_types(w.dtype, torch.float32)
         g = (state_dict[f"{bn}.weight"].to(dt)
              / torch.sqrt(state_dict[f"{bn}.running_var"].to(dt) + eps))
         out[f"{conv}.weight"] = w.to(dt) * g.view(-1, *[1] * (w.dim() - 1))
         out[f"{conv}.bias"] = (state_dict[f"{bn}.bias"].to(dt)
-                               - state_dict[key].to(dt) * g)
+                               - state_dict[f"{bn}.running_mean"].to(dt) * g)
         for name in ("weight", "bias", "running_mean", "running_var",
                      "num_batches_tracked"):
             out.pop(f"{bn}.{name}", None)
     return out
 
 
+def fold_conv_bn_params(state_dict: Dict[str, torch.Tensor],
+                        eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """Fold every eval-mode BatchNorm of an inline-ResNet3D state dict (a
+    backbone, a classifier or a fusion model of two) into the conv it
+    follows, paired by the ResNet3D names (``conv_name_of_bn``). Returns
+    the state dict of the folded model (``fold_bn_()``): biased convs, no
+    BatchNorm entries."""
+    pairs = [(conv_name_of_bn(k[:-len(".running_mean")]),
+              k[:-len(".running_mean")])
+             for k in state_dict if k.endswith(".running_mean")]
+    return _fold_pairs(state_dict, pairs, eps)
+
+
+def fold_zoo_conv_bn(state_dict: Dict[str, torch.Tensor], module: nn.Module,
+                     eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """``fold_conv_bn_params`` for any conv backbone ``module`` (whose
+    ``state_dict`` this is): MedicalNet, Res2Net or the inline ResNet3D.
+    Each BatchNorm pairs with the conv it follows by dataflow, as its
+    module class declares (``models.resnet3d.bn_conv_pairs``), never by
+    index; a BatchNorm with no conv partner raises."""
+    return _fold_pairs(state_dict, bn_conv_pairs(module), eps)
+
+
 def fold_state_for_serving(model: nn.Module) -> nn.Module:
-    """Fold the BatchNorms of every ResNet3D backbone of ``model`` into
-    their convs, once, in place on the model's device; returns the model
-    in eval mode."""
+    """Fold the BatchNorms of every conv backbone of ``model`` (ResNet3D,
+    MedicalNet, Res2Net) into their convs, once, in place on the model's
+    device; returns the model in eval mode. LayerNorm backbones (Swin,
+    UNETR) are left as they are."""
     model.eval()
-    folded = fold_conv_bn_params(model.state_dict())
-    for module in model.modules():
-        if isinstance(module, ResNet3DBackbone):
+    state = model.state_dict()
+    pairs = []
+    for name, module in list(model.named_modules()):
+        if isinstance(module, FoldableBackbone) and not module.fold_bn:
+            prefix = f"{name}." if name else ""
+            pairs += [(prefix + c, prefix + b)
+                      for c, b in bn_conv_pairs(module)]
             module.fold_bn_()
-    model.load_state_dict(folded)
+    model.load_state_dict(_fold_pairs(state, pairs, 1e-5))
     return model
 
 

@@ -3,7 +3,8 @@
 A CUDA kernel has no interpret mode, so these tests need the card: they are
 marked ``cuda`` and skip without one. ``chip_smoke.py`` holds the kernels to
 their plain versions at the main path's shapes; these tests add ragged
-shapes, masks, both band routes of K2, every cluster size of K1, bitwise
+shapes, masks, both band routes of K2, K2 at the non-square feature plans
+of heterogeneous backbones, every cluster size of K1, bitwise
 reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs, a
 base train step that must not read the device from the host, and a
 checkpoint snapshot of the card's tensors that must not alias them. They
@@ -246,6 +247,35 @@ def test_k2_at_the_base_inputs_matches_plain(cuda, b):
         neg_c, log_w, log_w, log_w.exp(), 1e-3,
         max_iterations=int(ker.n_iters), check=False)
     _close(ker.coupling, same.plan, 1e-4)
+
+
+@pytest.mark.parametrize("n,m,route", [(6144, 768, "shared"),
+                                       (768, 6144, "shared"),
+                                       (768, 1024, "shared"),
+                                       (2048, 6144, "device")])
+def test_k2_at_the_hetero_plans_matches_plain(cuda, n, m, route):
+    """Non-square (d_pet, d_mri) feature plans of heterogeneous backbones:
+    FOT cost of 128 correlated subjects under the identity plan, eps 5e-3,
+    to the exit. (2048, 6144) does not fit a band in shared memory."""
+    assert sinkhorn_kernel.sinkhorn_layout(n, m, _sm_count(cuda)).route \
+        == route
+    rng = np.random.default_rng(n + m)
+    z = rng.normal(size=(128, 8))
+    x = z @ rng.normal(size=(8, n)) + 0.05 * rng.normal(size=(128, n))
+    y = z @ rng.normal(size=(8, m)) + 0.05 * rng.normal(size=(128, m))
+    ts = torch.eye(128, device=cuda) / 128
+    cost = feature_cost(torch.from_numpy(x.astype(np.float32)).to(cuda),
+                        torch.from_numpy(y.astype(np.float32)).to(cuda),
+                        ts).contiguous()
+    kw = dict(epsilon=5e-3, threshold=1e-3, max_iterations=2000,
+              scale_cost=True)
+    before = sinkhorn_kernel.COUNTER.count
+    ker = sinkhorn(cost, **kw)
+    assert sinkhorn_kernel.COUNTER.count == before + 1
+    ref = sinkhorn(cost, plain=True, **kw)
+    assert int(ker.n_iters) == int(ref.n_iters)
+    assert bool(ker.converged) == bool(ref.converged)
+    _close(ker.coupling, ref.coupling, 1e-4)
 
 
 def test_sinkhorn_reads_nothing_back(cuda):

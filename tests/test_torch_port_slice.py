@@ -223,12 +223,19 @@ def test_device_cuda_without_gpu_raises(cohort, tmp_path, monkeypatch):
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mri-backbone", "swin_base_384"], ["--pet-backbone", "unetr_vit"],
-    ["--num-devices", "2"], ["--multihost"], ["--tp-size", "2"],
+@pytest.mark.parametrize("flags,error,match", [
+    # a 2D family on a volume trainer: refused before any data is read
+    (["--mri-backbone", "swin_base_384"], ValueError, "2D images"),
+    # UNETR sizes its position embeddings from the volume: a shape its
+    # 16^3 patches do not tile is refused when the model is built
+    (["--pet-backbone", "unetr_vit", "--target-shape", "20", "20", "20"],
+     ValueError, "patch size 16"),
+    (["--num-devices", "2"], NotImplementedError, "ROADMAP"),
+    (["--multihost"], NotImplementedError, "ROADMAP"),
+    (["--tp-size", "2"], NotImplementedError, "ROADMAP"),
 ])
-def test_unported_flags_raise(cohort, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_flags_raise(cohort, tmp_path, flags, error, match):
+    with pytest.raises(error, match=match):
         train_ot_attn.main(["--device", "cpu", "--data-dir", str(cohort),
                             "--save-path", str(tmp_path / "run"), *flags])
 
