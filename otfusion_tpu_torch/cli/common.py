@@ -17,6 +17,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from otfusion_tpu_torch.utils.device import resolve_device  # noqa: F401
+
 
 def add_common_args(parser: argparse.ArgumentParser, *, epochs: int,
                     batch_size: int, lr: float, save_path: str,
@@ -140,17 +142,6 @@ def reject_unported(args: argparse.Namespace) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported to "
                 f"otfusion_tpu_torch yet (ROADMAP.md, open item: {item})")
-
-
-def resolve_device(name: str) -> torch.device:
-    """The torch device for ``--device``; ``cuda`` without a GPU raises."""
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "--device cuda requested but torch.cuda.is_available() is "
-                "False; pass --device cpu to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
 
 
 def resolve_dtype(name: str):

@@ -66,6 +66,14 @@ def dense(in_features: int, out_features: int, bias: bool = True
     return layer
 
 
+def float32_dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in (at least) float32 with autocast off: flax's
+    ``nn.Dense`` with no dtype (the classifier heads) promotes a bf16 input
+    against its float32 kernel and returns float32."""
+    with torch.autocast(device_type=x.device.type, enabled=False):
+        return layer(x.to(torch.promote_types(x.dtype, torch.float32)))
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention`` (self-attention, qkv width =
     embed width) on batch-first tokens (B, S, E). The q/k/v projections

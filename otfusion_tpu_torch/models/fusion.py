@@ -34,6 +34,7 @@ from otfusion_tpu_torch.models.attention import (
     SelfAttentionBlock,
     dense,
     dropout,
+    float32_dense,
 )
 from otfusion_tpu_torch.models.registry import build_backbone
 from otfusion_tpu_torch.models.resnet3d import ResNet3DBackbone
@@ -162,8 +163,8 @@ class MultimodalOTFusion(nn.Module):
             attn_out = self.attention_mri(mri_fused[:, None, :],
                                           generator)[:, 0, :]
 
-        logits = self.fc(torch.cat([attn_out, pet_fused.to(attn_out.dtype)],
-                                   dim=1))
+        logits = float32_dense(self.fc, torch.cat(
+            [attn_out, pet_fused.to(attn_out.dtype)], dim=1))
         return {
             "logits": logits,
             "mri_feat": mri_feat,

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from otfusion_tpu_torch.models.attention import dense
+from otfusion_tpu_torch.models.attention import dense, float32_dense
 
 # depth -> (stage block counts, block kind)
 DEPTH_CONFIGS: dict[int, tuple[tuple[int, int, int, int], str]] = {
@@ -390,4 +390,4 @@ class ResNet3DClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         feats = self.backbone(x)
-        return self.fc(feats), feats
+        return float32_dense(self.fc, feats), feats

@@ -7,16 +7,20 @@ The products are plain ``torch.matmul``, as XLA computed them outside any
 kernel; the solve goes through ``ops.sinkhorn`` (kernel K2 on CUDA). ``fot``
 computes in float32 under any ``torch.autocast``, as the JAX ``fot`` casts
 to float32: the base trainer solves inside its bf16 train step at
-``epsilon=1e-3``, where a bf16 cost would move the plan.
+``epsilon=1e-3``, where a bf16 cost would move the plan. ``get_coupling_fot``
+is the harness's dict-in, numpy-out wrapper of it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import Dict, NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
 from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
+from otfusion_tpu_torch.utils.device import resolve_device
 
 
 class FOTResult(NamedTuple):
@@ -65,9 +69,64 @@ def apply_feature_coupling(features: torch.Tensor, tv: torch.Tensor,
     """Barycentric projection of ``features`` (B, d_src) through ``tv``
     (d_src, d_tgt): ``out[:, l] = sum_k f[:, k] tv[k, l] / sum_k tv[k, l]``,
     with NaN entries of the plan sent to 1e-8 and empty columns divided
-    by 1e-8. ``normalize=False`` applies the raw plan."""
+    by 1e-8. ``normalize=False`` applies the raw plan. The product runs in
+    the promoted type of the two with autocast off, as JAX's ``features @
+    tv`` does: bf16 features through a float32 plan give float32."""
     tv = torch.nan_to_num(tv, nan=1e-8)
     if normalize:
         col_mass = torch.sum(tv, dim=0, keepdim=True)
         tv = tv / torch.where(col_mass == 0, 1e-8, col_mass)
-    return features @ tv.to(features.dtype)
+    dtype = torch.promote_types(features.dtype, tv.dtype)
+    with torch.autocast(device_type=features.device.type, enabled=False):
+        return features.to(dtype) @ tv.to(dtype)
+
+
+def mdict_to_matrix(m_dict: Dict[int, np.ndarray], source_labels: np.ndarray,
+                    target_labels: np.ndarray) -> np.ndarray:
+    """Scatter per-label couplings into one float64 block matrix: block
+    [rows with source label l] x [columns with target label l] receives
+    ``m_dict[l]``; everything else is zero."""
+    source_labels = np.asarray(source_labels)
+    target_labels = np.asarray(target_labels)
+    total = np.zeros((len(source_labels), len(target_labels)),
+                     dtype=np.float64)
+    for label, block in m_dict.items():
+        rows = np.where(source_labels == label)[0]
+        cols = np.where(target_labels == label)[0]
+        total[np.ix_(rows, cols)] = block
+    return total
+
+
+def get_coupling_fot(
+    data: Tuple[Dict[int, np.ndarray], Dict[int, np.ndarray]],
+    ts: Union[Dict[int, np.ndarray], np.ndarray],
+    eps: float = 5e-3,
+    device: str | torch.device = "cuda",
+) -> Tuple[np.ndarray, Dict]:
+    """``(Tv, log)`` for per-label feature dicts ``data`` and a sample
+    coupling ``ts`` (per-label blocks, assembled block-diagonally, or one
+    dense matrix): one ``fot`` solve on ``device`` (kernel K2 on CUDA).
+    The log has the keys ``cost``, ``converged``, ``n_iters``, ``time``."""
+    device = resolve_device(device)
+    x_dict, y_dict = data
+    labels = list(x_dict.keys())
+    if isinstance(ts, dict):
+        src = np.concatenate([np.full(x_dict[l].shape[0], l) for l in labels])
+        tgt = np.concatenate([np.full(y_dict[l].shape[0], l) for l in labels])
+        ts = mdict_to_matrix(ts, src, tgt)
+    x = np.concatenate([x_dict[l] for l in labels])
+    y = np.concatenate([y_dict[l] for l in labels])
+
+    def on(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    start = time.time()
+    result = fot(on(x), on(y), on(ts), epsilon=eps)
+    tv = result.coupling.cpu().numpy()
+    log = {
+        "cost": [float(result.cost)],
+        "converged": bool(result.converged),
+        "n_iters": int(result.n_iters),
+        "time": time.time() - start,
+    }
+    return tv, log

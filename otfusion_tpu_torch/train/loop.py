@@ -588,7 +588,7 @@ def run_unimodal_training(
     continues from ``latest/``). After the last epoch the best weights are
     restored and evaluated once more, with their pooled features. The
     reference's confusion-matrix and t-SNE PNGs are not written yet
-    (ROADMAP §2 item 3)."""
+    (ROADMAP.md, open item: the PNG artifacts)."""
     if not len(val_idx) or not len(train_idx):
         raise ValueError(
             f"empty split: {len(train_idx)} train / {len(val_idx)} val "

@@ -3,9 +3,10 @@
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` / ``flax.core.unfreeze`` output). Output:
 a ``state_dict`` of the port's ``MultimodalOTFusion`` (any pair of
-backbones), ``ResNet3DClassifier``, or of one zoo backbone
+backbones), ``ResNet3DClassifier``, of one zoo backbone
 (``backbone_state_dict_from_jax``: ResNet3D, MedicalNet, Res2Net, Swin,
-UNETR). Layouts:
+UNETR), or of the eval harness's MLP (``mlp_state_dict_from_jax``).
+Layouts:
 
   Conv kernel    (kD, kH, kW, I, O)        -> (O, I, kD, kH, kW) (2D alike)
   Dense kernel   (in, out)                 -> (out, in)
@@ -345,4 +346,14 @@ def classifier_state_dict_from_jax(params: Dict[str, Any],
                                        (batch_stats or {}).get("backbone"),
                                        prefix="backbone")
     _dense(out, "fc", params["fc"])
+    return out
+
+
+def mlp_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the harness's ``eval.predictors.MLP`` from the flax
+    params of the JAX package's ``train_mlp`` MLP (``Dense_0`` to
+    ``Dense_2``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        _dense(out, f"dense{i}", params[f"Dense_{i}"])
     return out

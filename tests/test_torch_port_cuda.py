@@ -6,8 +6,10 @@ their plain versions at the main path's shapes; these tests add ragged
 shapes, masks, both band routes of K2, K2 at the non-square feature plans
 of heterogeneous backbones, every cluster size of K1, bitwise
 reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs, a
-base train step that must not read the device from the host, and a
-checkpoint snapshot of the card's tensors that must not alias them. They
+base train step that must not read the device from the host, a
+checkpoint snapshot of the card's tensors that must not alias them, and
+the eval harness's inputs: K2 under a label plan mask, on marginals with
+zeros and on a padded label down to eps 1e-5, K1 at 10 labels x cap 96. They
 import no JAX, so on a machine with a GPU they run without the
 repository's conftest:
 
@@ -348,3 +350,131 @@ def test_checkpoint_snapshot_of_card_tensors_is_not_aliased(cuda, tmp_path):
     for key, value in model.state_dict().items():
         assert torch.equal(value, want[key]), key
     assert torch.equal(opt.state[model.weight]["exp_avg"], moment)
+
+
+def _plain_on_cpu(cost, p=None, q=None, **kw):
+    """The plain solve on the CPU, the one the CPU tests hold to JAX."""
+    def cpu(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    return sinkhorn(cost.cpu(), cpu(p), cpu(q),
+                    **{k: cpu(v) for k, v in kw.items()})
+
+
+def _held_to_cpu_plain(ker, ref, eps, rows=None, cols=None):
+    """The same count and convergence as the plain solve on the CPU, the
+    duals of valid entries within 1e-4 of their largest, and the plan
+    within 1e-4 of max T at eps >= 1e-3. Below, -C/eps reaches -1e4 and a
+    float32 step of the exponents is ~1e-3: two orders of the same sums
+    put plans apart by 1e-4 of max T and more (the plain solve on the card
+    against the one on the CPU as well; ``chip_smoke.py`` logs both, and
+    PERF.md keeps the readings), so there the duals carry the comparison
+    and the plan is held within 1e-2."""
+    assert int(ker.n_iters) == int(ref.n_iters)
+    assert bool(ker.converged) == bool(ref.converged)
+    _close(ker.coupling.cpu(), ref.coupling, 1e-4 if eps >= 1e-3 else 1e-2)
+    for a, b, v in ((ker.f, ref.f, rows), (ker.g, ref.g, cols)):
+        v = slice(None) if v is None else v.cpu()
+        _close(a.cpu()[v], b[v], 1e-4)
+
+
+def _labelled_screen(rng, n_labels, rows, d):
+    """Per-label (X, Y) rows sharing a 3-dim latent, shifted and ReLU'd
+    (non-negative, as pooled post-ReLU features), ``rows[l]`` rows each,
+    with channel 0 dead in every row."""
+    a, b = rng.normal(size=(3, d)), rng.normal(size=(3, d))
+    xs, ys = [], []
+    for n in rows:
+        z = rng.normal(size=(n, 3))
+        xs.append(np.maximum(z @ a + 2.0 + 0.05 * rng.normal(size=(n, d)), 0))
+        ys.append(np.maximum(z @ b + 2.0 + 0.05 * rng.normal(size=(n, d)), 0))
+        xs[-1][:, 0] = 0.0
+        ys[-1][:, 0] = 0.0
+    return ([x.astype(np.float32) for x in xs],
+            [y.astype(np.float32) for y in ys])
+
+
+@pytest.mark.parametrize("eps", [1e-2, 1e-4])
+def test_k2_under_a_plan_mask_matches_plain(cuda, eps):
+    """LEOT's solve: the cross cost of the concatenated labels with the plan
+    masked to the label blocks (1e30 off them): the same count, the plan
+    within 1e-4 of max T and exactly 0 off the blocks."""
+    from otfusion_tpu_torch.ops.costs import pairwise_sq_euclidean
+
+    rows = [12, 9, 15, 10, 11, 8, 14, 13, 10, 9]
+    xs, ys = _labelled_screen(np.random.default_rng(21), len(rows), rows, 32)
+    lab = np.concatenate([np.full(n, i) for i, n in enumerate(rows)])
+    x = torch.from_numpy(np.concatenate(xs)).to(cuda)
+    y = torch.from_numpy(np.concatenate(ys)).to(cuda)
+    mask = torch.from_numpy(lab[:, None] == lab[None, :]).to(cuda)
+    kw = dict(epsilon=eps, threshold=1e-3, scale_cost=True, plan_mask=mask)
+    cost = pairwise_sq_euclidean(x, y).contiguous()
+    ker = sinkhorn(cost, **kw)
+    _held_to_cpu_plain(ker, _plain_on_cpu(cost, **kw), eps)
+    assert float(ker.coupling[~mask].abs().sum()) == 0.0
+
+
+def test_k2_on_marginals_with_zeros_matches_plain(cuda):
+    """COOT's feature stage: data-driven marginals (column sums of
+    non-negative features) with a dead channel, so log v = log 1e-38 on
+    one row and one column."""
+    xs, ys = _labelled_screen(np.random.default_rng(22), 4, [30] * 4, 256)
+    x = torch.from_numpy(np.concatenate(xs)).to(cuda)
+    y = torch.from_numpy(np.concatenate(ys)).to(cuda)
+    v1, v2 = x.sum(0) / x.sum(), y.sum(0) / y.sum()
+    assert float(v1[0]) == 0.0 and float(v2[0]) == 0.0
+    ts = torch.eye(120, device=cuda) / 120
+    cost = feature_cost(x, y, ts).contiguous()
+    kw = dict(epsilon=1e-2, threshold=1e-3, scale_cost=True)
+    ker = sinkhorn(cost, v1, v2, **kw)
+    _held_to_cpu_plain(ker, _plain_on_cpu(cost, v1, v2, **kw), 1e-2)
+    assert float(ker.coupling[0].abs().max()) <= 1e-30
+
+
+@pytest.mark.parametrize("eps", [1e-2, 1e-4, 1e-5])
+def test_k2_on_a_padded_label_matches_plain(cuda, eps):
+    """COOT's per-label sample solve at cap 96 with 81 valid rows and 90
+    valid columns: whole rows and columns masked (cost 1e30, log-weight
+    -1e30, so -C/eps reaches -1e35 at eps 1e-5). Held to the plain solve
+    on the CPU (``_held_to_cpu_plain``), exactly 0 on padding, and the
+    masked duals (rounding residues of the 1e30 sentinels) within 1e-4 of
+    their largest as well."""
+    rng = np.random.default_rng(23)
+    cost = torch.from_numpy(rng.uniform(size=(96, 96)).astype(np.float32)
+                            ).to(cuda)
+    rm = torch.zeros(96, dtype=torch.bool, device=cuda)
+    cm = torch.zeros(96, dtype=torch.bool, device=cuda)
+    rm[:81] = True
+    cm[:90] = True
+    kw = dict(epsilon=eps, threshold=1e-3, scale_cost=True, row_mask=rm,
+              col_mask=cm)
+    ker = sinkhorn(cost, **kw)
+    ref = _plain_on_cpu(cost, **kw)
+    _held_to_cpu_plain(ker, ref, eps, rm, cm)
+    assert float(ker.coupling[81:].abs().sum()) == 0.0
+    assert float(ker.coupling[:, 90:].abs().sum()) == 0.0
+    _close(ker.f.cpu()[~rm.cpu()], ref.f[~rm.cpu()], 1e-4)
+    _close(ker.g.cpu()[~cm.cpu()], ref.g[~cm.cpu()], 1e-4)
+
+
+def test_k1_at_ten_labels_cap_96_matches_plain(cuda):
+    """Per-label GW of a labelled screen: 10 labels of 80 to 96 rows padded
+    to cap 96, which K1 runs as an 8-block cluster per label (80 blocks in
+    one launch)."""
+    rows = [96, 82, 95, 89, 93, 87, 80, 80, 90, 83]
+    xs, ys = _labelled_screen(np.random.default_rng(24), 10, rows, 64)
+    x = np.zeros((10, 96, 64), np.float32)
+    y = np.zeros((10, 96, 64), np.float32)
+    mask = np.zeros((10, 96), bool)
+    for i, n in enumerate(rows):
+        x[i, :n], y[i, :n], mask[i, :n] = xs[i], ys[i], True
+    x, y, m = (torch.from_numpy(a).to(cuda) for a in (x, y, mask))
+    assert load_library("gw").otf_gw_cluster_for_cap(96) == 8
+    before = gw_kernel.COUNTER.count
+    ker = egw_per_label(x, y, m, m, epsilon=1e-2)
+    assert gw_kernel.COUNTER.count == before + 1
+    ref = egw_per_label(x, y, m, m, epsilon=1e-2, plain=True)
+    assert torch.equal(ker.n_iters, ref.n_iters)
+    _close(ker.coupling, ref.coupling, 1e-4)
+    pad = ~(m[:, :, None] & m[:, None, :])
+    assert float(ker.coupling[pad].abs().sum()) == 0.0
