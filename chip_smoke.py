@@ -86,8 +86,9 @@ Every check that fails exits non-zero before the last line. The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it is the kernels' JSON summary (``launches`` counts every
 run's launches; K2's ``base_*`` keys are its times at the base inputs,
-B = 8, ``hetero`` its times at the hetero plans, and each kernel's
-``perturbot`` its times at the harness's inputs). ``--kernels-only`` stops after phase 5 and prints no result line.
+B = 8, ``hetero`` its times at the hetero plans, each kernel's
+``perturbot`` its times at the harness's inputs and ``gamma`` at the
+legacy GAMMA trainer's). ``--kernels-only`` stops after phase 5 and prints no result line.
 """
 
 from __future__ import annotations
@@ -1436,9 +1437,10 @@ def _on_cpu(kw):
 K2_SMALL_EPS_PLAN_TOL = 1e-2
 
 
-def _k2_harness_case(tag, cost, runs, plain_runs, **kw):
-    """K2 on one of the harness's costs against the plain version run on
-    the CPU, the one the CPU tests hold to JAX: one launch, the same
+def _k2_harness_case(tag, cost, runs, plain_runs, *, phase="perturbot",
+                     **kw):
+    """K2 on a cost the harness (or the legacy trainer, ``phase="gamma"``)
+    gives it against the plain version run on the CPU, the one the CPU tests hold to JAX: one launch, the same
     n_iters, the duals within 1e-4 of their largest (valid and masked
     entries apart), the plan exactly 0 off the masks and within 1e-4 of
     max T at eps >= 1e-3 (else ``K2_SMALL_EPS_PLAN_TOL``). The plain
@@ -1477,7 +1479,7 @@ def _k2_harness_case(tag, cost, runs, plain_runs, **kw):
                 b = b.cuda()[sel]
                 err = float((a[sel] - b).abs().max() / b.abs().max())
                 duals[name] = max(duals.get(name, 0.0), err)
-    log(f"[perturbot] K2 {tag} ({n}x{m}): n_iters kernel {k_it}, plain on "
+    log(f"[{phase}] K2 {tag} ({n}x{m}): n_iters kernel {k_it}, plain on "
         f"the CPU {r_it}, plain on the card {c_it}; converged "
         f"{bool(ker.converged)}/{bool(ref.converged)}; max|dT| against the "
         f"CPU's plain {diff / t_max:.3e} max T (the card's plain "
@@ -1493,7 +1495,7 @@ def _k2_harness_case(tag, cost, runs, plain_runs, **kw):
     ms = time_ms(lambda: sinkhorn(cost, **kw), runs)
     plain_ms = time_ms(lambda: sinkhorn(cost, plain=True, **kw), plain_runs)
     bound_ms, bound_by = k2_bound(n, m, k_it, 5)
-    log(f"[perturbot] K2 {tag}: kernel {ms:.4f} ms, plain on the card "
+    log(f"[{phase}] K2 {tag}: kernel {ms:.4f} ms, plain on the card "
         f"{plain_ms:.4f} ms (median of {runs} / {plain_runs}), bound "
         f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.4f} of the bound")
     return {"shape": [n, m], "eps": kw["epsilon"], "n_iters": k_it,
@@ -1719,6 +1721,354 @@ def phase_perturbot(work):
     return runs, {"k1": k1, "k2": k2, "runs": summary}
 
 
+# phase_gamma: the legacy GAMMA fundus+OCT trainer and its ensemble tester.
+# The cohort is written at a photograph-like 512^2 and OCT 112^3, so the
+# loader's resizes to the CLI defaults (384^2, 96^3: d_oct = 6144) run.
+GAMMA_CASES = 40
+GAMMA_WRITTEN = dict(fundus_size=512, oct_shape=(112, 112, 112))
+GAMMA_FUNDUS = 384
+GAMMA_OCT = 96
+GAMMA_LABELS = 2
+GAMMA_BATCH = 4
+GAMMA_EPS = 5e-3
+GAMMA_GW_ITERS = 500  # the legacy train step's EGWL cap
+# One train step, card against CPU, at a size the CPU steps quickly:
+# fundus 128^2, OCT 32^3 (d_oct 2048). In float32 the gradients of these
+# shapes are noise-limited (the port's own float32 and float64 steps on
+# the CPU part by 0.42 of a leaf's largest entry in layer4 of Res2Net,
+# 4x4 maps over 4 cases): the float32 step is held on its losses and on
+# AdamW's bound for each update (2 lr), the float64 step on every
+# gradient leaf and on the updates whose sign is firm.
+GAMMA_PARITY_FUNDUS = 128
+GAMMA_PARITY_OCT = 32
+GAMMA_PARITY_LR = 1e-4
+GAMMA_PARITY = {
+    "float32": {"loss_rel": 1e-3, "moved_share": 2e-2},
+    "float64": {"loss_rel": 1e-5, "grad_rel": 1e-3, "firm_abs": 1e-6},
+}
+
+
+def _gamma_model(fundus_size, oct_depth, dropout=True):
+    from otfusion_tpu_torch.models.legacy_fusion import (
+        LegacyMultiModalFusion,
+        probe_oct_dim,
+    )
+
+    rates = {} if dropout else dict(projection_dropout=0.0,
+                                    attention_dropout=0.0)
+    return LegacyMultiModalFusion(
+        num_classes=GAMMA_LABELS, oct_input_depth=oct_depth,
+        oct_feature_dim=probe_oct_dim((oct_depth,) * 3), **rates)
+
+
+def _gamma_features(mgamma, label_csv, n_cases):
+    """Features of the first ``n_cases`` cases as the train step's encode
+    gives them (a seeded full-width model, BatchNorm in train mode, bf16
+    autocast, batches of 4): (fundus (n, 2048), OCT (n, 6144), labels),
+    on the card."""
+    import torch
+
+    from otfusion_tpu_torch.data.gamma import GammaDataset, GammaLoader
+
+    torch.manual_seed(0)
+    model = _gamma_model(GAMMA_FUNDUS, GAMMA_OCT).cuda().train()
+    ds = GammaDataset(mgamma, label_csv, oct_shape=(GAMMA_OCT,) * 3,
+                      fundus_size=GAMMA_FUNDUS)
+    loader = GammaLoader(ds, range(n_cases), GAMMA_BATCH,
+                         feed_dtype=torch.bfloat16)
+    f_all, o_all, y_all = [], [], []
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        for fundus, oct_vol, labels in loader:
+            f, o = model.encode(fundus.cuda(), oct_vol.cuda())
+            f_all.append(f.float())
+            o_all.append(o.float())
+            y_all.append(labels.cuda())
+    return torch.cat(f_all), torch.cat(o_all), torch.cat(y_all)
+
+
+def _gamma_kernels(mgamma, label_csv):
+    """K2 at the train step's input, the (6144, 2048) FOT cost from a
+    4-row EGWL plan on real encoder features; EGWL on the card against the
+    CPU; K1 at the coupling's input (the 32 cases of a 5-fold train split,
+    2 labels x cap 64, 16 rows each; its FOT is K2 at the same shape)."""
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import time_ms
+    from otfusion_tpu_torch.ops import gw_kernel
+    from otfusion_tpu_torch.ops.fot import feature_cost
+    from otfusion_tpu_torch.ops.gromov import (
+        _prep,
+        egw_per_label,
+        entropic_gw_labels,
+    )
+    from otfusion_tpu_torch.train.coupling import group_and_pad
+
+    f, o, y = _gamma_features(mgamma, label_csv,
+                              GAMMA_CASES - GAMMA_CASES // 5)
+    fb, ob, yb = f[:GAMMA_BATCH], o[:GAMMA_BATCH], y[:GAMMA_BATCH]
+    egwl, plans = {}, {}
+    for tag, a, b in (("f2o", fb, ob), ("o2f", ob, fb)):
+        kw = dict(epsilon=GAMMA_EPS, max_iterations=GAMMA_GW_ITERS)
+        card = entropic_gw_labels(a, b, yb, yb, **kw)
+        cpu = entropic_gw_labels(a.cpu(), b.cpu(), yb.cpu(), yb.cpu(), **kw)
+        it_card, it_cpu = int(card.n_iters), int(cpu.n_iters)
+        t_max = float(cpu.coupling.max())
+        diff = float((card.coupling.cpu() - cpu.coupling).abs().max())
+        ms = time_ms(lambda: entropic_gw_labels(a, b, yb, yb, **kw), 10)
+        log(f"[gamma] EGWL {tag} (4 x 4, d {a.shape[1]} -> {b.shape[1]}): "
+            f"n_iters card {it_card} CPU {it_cpu}; max|dT| "
+            f"{diff / t_max:.3e} max T; {ms:.3f} ms a solve, "
+            f"{it_card // 8} host reads")
+        check(it_card == it_cpu, f"[gamma] EGWL {tag}: n_iters differ")
+        check(diff <= 1e-4 * t_max, f"[gamma] EGWL {tag}: plans differ")
+        egwl[tag] = {"n_iters": it_card, "rel_err": diff / t_max, "ms": ms,
+                     "host_reads": it_card // 8}
+        plans[tag] = card.coupling
+
+    # the step's FOT: fot(o, f, t_f2o.T) normalises the plan, then solves
+    # the max-scaled feature cost
+    ts = plans["f2o"].T / plans["f2o"].sum()
+    k2_step = _k2_harness_case(
+        "step FOT", feature_cost(ob, fb, ts).contiguous(), 20, 5,
+        phase="gamma", epsilon=GAMMA_EPS, scale_cost=True)
+
+    # the coupling's inputs, as train_gamma.eval_coupling builds them
+    ya = y.cpu().numpy()
+    o_g, o_m = group_and_pad(o.cpu().numpy(), ya, GAMMA_LABELS, 64)
+    f_g, f_m = group_and_pad(f.cpu().numpy(), ya, GAMMA_LABELS, 64)
+    to = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    x, xm, yg, ym = to(o_g), to(o_m), to(f_g), to(f_m)
+    before = gw_kernel.COUNTER.count
+    ker = egw_per_label(x, yg, xm, ym, epsilon=GAMMA_EPS)
+    per_solve = gw_kernel.COUNTER.count - before
+    ref = egw_per_label(x, yg, xm, ym, epsilon=GAMMA_EPS, plain=True)
+    it_k, it_r = ker.n_iters.tolist(), ref.n_iters.tolist()
+    t_max = float(ref.coupling.max())
+    diff = float((ker.coupling - ref.coupling).abs().max())
+    pad = float((ker.coupling * ~(xm[:, :, None] & ym[:, None, :])).abs()
+                .sum())
+    log(f"[gamma] K1 coupling: n_iters kernel {it_k} plain {it_r}; max|dT| "
+        f"{diff:.3e} = {diff / t_max:.3e} max T; mass on padding {pad}")
+    check(it_k == it_r, "K1 at the gamma coupling: n_iters differ")
+    check(diff <= 1e-4 * t_max, "K1 at the gamma coupling: plans differ by "
+          "more than 1e-4 max T")
+    check(pad == 0.0, "K1 at the gamma coupling: mass on padding")
+    check(per_solve == 1, "K1 at the gamma coupling: more than one launch")
+    cx, p, log_p = _prep(x, xm)
+    cy, q, log_q = _prep(yg, ym)
+    args = (cx, cy, log_p, log_q, p, q)
+    ms = time_ms(lambda: gw_kernel.gw_solve(*args, epsilon=GAMMA_EPS))
+    plain_ms = time_ms(lambda: gw_kernel.gw_solve_plain(
+        *args, epsilon=GAMMA_EPS), 5)
+    bound_ms, bound_by = k1_bound(2, 64, it_k)
+    log(f"[gamma] K1 coupling (rows {o_m.sum(1).tolist()} of cap 64): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    k1 = {"rows": o_m.sum(1).tolist(), "n_iters": it_k,
+          "max_abs_err": diff, "rel_err": diff / t_max, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"k1": k1, "k2_step": k2_step, "egwl": egwl}
+
+
+def _gamma_parity_step():
+    """One train step from identical weights, dropout at 0 and the same
+    partner indices, on the card (TF32 off, deterministic cuDNN) and on
+    the CPU, in float32 and in float64 (EGWL and FOT compute in float32
+    in both, as in the JAX step). Float32: the losses, and every updated
+    parameter within AdamW's first-step bound, with the share that moved
+    apart logged; float64: the losses, every gradient leaf and the
+    updated parameters where the gradient's sign is firm."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.train.legacy_steps import make_legacy_train_step
+    from otfusion_tpu_torch.train.train_state import make_optimizer
+
+    torch.manual_seed(1)
+    start = _gamma_model(GAMMA_PARITY_FUNDUS, GAMMA_PARITY_OCT,
+                         dropout=False)
+    rng = np.random.default_rng(2)
+    s, d = GAMMA_PARITY_FUNDUS, GAMMA_PARITY_OCT
+    fundus = torch.from_numpy(rng.uniform(size=(4, s, s, 3)).astype(
+        np.float32))
+    oct_vol = torch.from_numpy(rng.uniform(size=(4, d, d, d, 1)).astype(
+        np.float32))
+    labels = torch.tensor([0, 1, 0, 1])
+    # partners of the same label, as the label-masked plans give them
+    partners = torch.tensor([2, 3, 0, 1])
+
+    def run(dtype, device):
+        model = copy.deepcopy(start).to(device, dtype)
+        optimizer = make_optimizer(model.parameters(), GAMMA_PARITY_LR)
+        step = make_legacy_train_step(
+            model, optimizer, sample_partners=lambda a, b, g: (
+                partners.to(device), partners.to(device)))
+        met = step(fundus.to(device, dtype), oct_vol.to(device, dtype),
+                   labels.to(device))
+        return {k: float(v) for k, v in met.items()}, {
+            n: (p.detach().double().cpu(), p.grad.double().cpu())
+            for n, p in model.named_parameters()}
+
+    out = {}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    for dtype in (torch.float32, torch.float64):
+        # the comparison settings (the trainer phases turn cuDNN's TF32 on)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            card, card_p = run(dtype, "cuda")
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        cpu, cpu_p = run(dtype, "cpu")
+        loss_rel = max(abs(card[k] - cpu[k]) / abs(cpu[k])
+                       for k in ("loss", "ce_loss", "ot_loss"))
+        grad_rel, worst, param_abs, firm_abs = 0.0, "", 0.0, 0.0
+        moved = firm = total = 0
+        for name, (p, g) in cpu_p.items():
+            pc, gc = card_p[name]
+            scale = float(g.abs().max())
+            rel = (float((gc - g).abs().max()) - 1e-9) / max(scale, 1e-30)
+            if rel > grad_rel:
+                grad_rel, worst = rel, name
+            diff = (pc - p).abs()
+            param_abs = max(param_abs, float(diff.max()))
+            moved += int((diff > 1e-6).sum())
+            # AdamW's first update is lr * g / (|g| + 1e-8): its sign where
+            # |g| is well above 1e-8, weight decay alone where g is 0
+            sure = (g.abs() >= 1e-6) | ((g == 0) & (gc == 0))
+            if bool(sure.any()):
+                firm_abs = max(firm_abs, float(diff[sure].max()))
+            firm += int(sure.sum())
+            total += g.numel()
+        tag = str(dtype).split(".")[-1]
+        log(f"[gamma] one {tag} step, card against CPU: losses {card} / "
+            f"{cpu}, worst relative {loss_rel:.3e}; gradients within "
+            f"{grad_rel:.3e} of a leaf's largest (+1e-9; worst {worst}); "
+            f"updated parameters within {param_abs:.3e}, {moved / total:.4f} "
+            f"of them more than 1e-6 apart; where |g| >= 1e-6 or g = 0 "
+            f"({firm / total:.4f} of them) within {firm_abs:.3e}")
+        check(card["correct"] == cpu["correct"],
+              f"[gamma] {tag} parity: correct")
+        bounds = GAMMA_PARITY[tag]
+        check(loss_rel <= bounds["loss_rel"], f"[gamma] {tag} parity: losses")
+        check(param_abs <= 2.0 * GAMMA_PARITY_LR * (1 + 1e-3),
+              f"[gamma] {tag} parity: an update beyond AdamW's bound")
+        if tag == "float32":
+            check(moved / total <= bounds["moved_share"],
+                  f"[gamma] {tag} parity: too many updates apart")
+        else:
+            check(grad_rel <= bounds["grad_rel"],
+                  f"[gamma] {tag} parity: gradients")
+            check(firm_abs <= bounds["firm_abs"],
+                  f"[gamma] {tag} parity: updated parameters")
+        out[tag] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                    "param_abs": param_abs, "moved_share": moved / total,
+                    "firm_abs": firm_abs, "firm_share": firm / total}
+    return out
+
+
+def _check_ensemble_metrics(tag, metrics):
+    """Every ensemble metric finite, but the one whose definition
+    (scikit-learn's, kept by the JAX package) leaves it undefined when
+    every prediction is right: the FPR at 95 % TPR of correctness, which
+    then has no negatives."""
+    import math
+
+    undefined = set()
+    if metrics["ens_accuracy"] == 1.0:
+        undefined.add("ens_fpr_at_95_tpr")
+    bad = sorted(k for k, v in metrics.items()
+                 if not math.isfinite(v) and k not in undefined)
+    check(not bad, f"[{tag}] metrics not finite: {bad}")
+    for key in undefined:
+        log(f"[{tag}] {key} = {metrics[key]} (undefined on this data)")
+
+
+def phase_gamma(work):
+    """The legacy GAMMA surface at full width (see the module docstring):
+    the fixture, K2 and EGWL at the step's inputs and K1 at the
+    coupling's, ``train_gamma --folds 5 --max-folds 2 --epochs 2`` and
+    ``test_gamma`` on its two folds with their launches, and one step
+    card against CPU. Returns ({run: launches}, summary)."""
+    import math
+
+    import torch
+
+    from otfusion_tpu_torch.cli import test_gamma, train_gamma
+    from otfusion_tpu_torch.data.gamma import make_synthetic_gamma
+
+    t0 = time.perf_counter()
+    mgamma, label_csv = make_synthetic_gamma(
+        work / "gamma", n_cases=GAMMA_CASES, n_classes=GAMMA_LABELS,
+        seed=0, **GAMMA_WRITTEN)
+    t_fixture = time.perf_counter() - t0
+    log(f"[gamma] cohort of {GAMMA_CASES} cases, written as "
+        f"{GAMMA_WRITTEN} ({t_fixture:.2f} s)")
+    kernels = _gamma_kernels(mgamma, label_csv)
+    t_kernels = time.perf_counter() - t0 - t_fixture
+
+    out = work / "gamma_run"
+    folds, max_folds, epochs = 5, 2, 2
+    torch.cuda.reset_peak_memory_stats()
+    size = ["--fundus-size", str(GAMMA_FUNDUS), "--oct-shape",
+            *[str(GAMMA_OCT)] * 3]
+    _, launches, train_s = _drive("gamma-train", train_gamma, [
+        "--data-root", str(mgamma), "--label-file", str(label_csv),
+        "--folds", str(folds), "--max-folds", str(max_folds),
+        "--epochs", str(epochs), "--save-path", str(out), *size])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_cases = GAMMA_CASES - GAMMA_CASES // folds
+    steps = max_folds * epochs * math.ceil(train_cases / GAMMA_BATCH)
+    couplings = epochs * max_folds + max_folds
+    want = {"sinkhorn": steps + couplings, "gw": couplings}
+    log(f"[gamma-train] {steps} train steps, {couplings} couplings: "
+        f"launches {launches} (want {want}); peak {peak:.2f} GiB")
+    timings = json.loads((out / "timings.json").read_text())
+    for row in timings:
+        log(f"[gamma-train] fold {row['fold']} epoch {row['epoch']}: "
+            f"phase_seconds {row['phase_seconds']}; median step "
+            f"{row['median_step_ms']:.1f} ms")
+    check(launches == want, f"[gamma-train] launches {launches}, want {want}")
+    metrics = json.loads((out / "ensemble_metrics.json").read_text())
+    log(f"[gamma-train] ensemble: {json.dumps(metrics)}")
+    check(metrics["n_members"] == max_folds, "[gamma-train] members")
+    _check_ensemble_metrics("gamma-train", metrics)
+    for fold in range(max_folds):
+        check((out / f"fold{fold}" / "checkpoint.pt").exists(),
+              f"[gamma-train] no checkpoint for fold {fold}")
+
+    _, test_launches, test_s = _drive("gamma-test", test_gamma, [
+        "--data-root", str(mgamma), "--label-file", str(label_csv),
+        "--checkpoints", str(out / "fold0"), str(out / "fold1"),
+        "--output", str(work / "gamma_test.json"), *size])
+    tested = json.loads((work / "gamma_test.json").read_text())
+    log(f"[gamma-test] metrics: {json.dumps(tested)}")
+    check(test_launches == {"sinkhorn": max_folds, "gw": max_folds},
+          f"[gamma-test] launches {test_launches}, want one of each a "
+          "member")
+    _check_ensemble_metrics("gamma-test", tested)
+    parity = _gamma_parity_step()
+    seconds = time.perf_counter() - t0
+    log(f"[gamma] phase {seconds:.2f} s (fixture {t_fixture:.2f}, kernels "
+        f"{t_kernels:.2f}, trainer {train_s:.2f}, tester {test_s:.2f})")
+    shutil.rmtree(work / "gamma")
+    shutil.rmtree(out)
+    summary = {"seconds": seconds, "train_seconds": train_s,
+               "test_seconds": test_s, "peak_gib": peak,
+               "median_step_ms": [r["median_step_ms"] for r in timings],
+               "phase_seconds": [r["phase_seconds"] for r in timings],
+               "parity": parity, "egwl": kernels["egwl"]}
+    return ({"gamma-train": launches, "gamma-test": test_launches},
+            kernels, summary)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1781,6 +2131,8 @@ def main(argv=None) -> None:
         runs["config5"], config5 = phase_config5(work)
         perturbot_runs, perturbot = phase_perturbot(work)
         runs.update(perturbot_runs)
+        gamma_runs, gamma_kernels, gamma = phase_gamma(work)
+        runs.update(gamma_runs)
     total = {k: sum(r[k] for r in runs.values()) for k in ("sinkhorn", "gw")}
     log(f"[trainers] launches per run {json.dumps(runs)}; total {total}")
     log(f"[base] {json.dumps(base)}")
@@ -1791,6 +2143,7 @@ def main(argv=None) -> None:
     log("[hetero] " + json.dumps({"serve": hetero_serve,
                                   "config5": config5}))
     log("[perturbot] " + json.dumps(perturbot["runs"]))
+    log("[gamma] " + json.dumps(gamma))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_solve")
@@ -1801,13 +2154,16 @@ def main(argv=None) -> None:
          "source": "otfusion_tpu_torch/csrc/gw.cu",
          "replaces": "otfusion_tpu/experimental/gw_kernel.py:149",
          "launches": total["gw"], **{k: k1[k] for k in keys},
-         "perturbot": perturbot["k1"], "library_ms": None},
+         "perturbot": perturbot["k1"], "gamma": gamma_kernels["k1"],
+         "library_ms": None},
         {"name": "sinkhorn", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/sinkhorn.cu",
          "replaces": "otfusion_tpu/experimental/sinkhorn_kernel.py:131",
          "launches": total["sinkhorn"], **{k: k2[k] for k in keys},
          **{k: k2_base[k] for k in base_keys}, "hetero": k2_hetero,
-         "perturbot": perturbot["k2"], "library_ms": None},
+         "perturbot": perturbot["k2"],
+         "gamma": gamma_kernels["k2_step"],
+         "library_ms": None},
     ]
     log(f"[done] {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"kernels": kernels}))

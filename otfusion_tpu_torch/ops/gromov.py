@@ -12,10 +12,15 @@ plan masked to the label blocks (not a product of row and column masks).
 The JAX package computes it with XLA ops and no Pallas kernel, so here it
 is PyTorch ops on the tensors' device (``_egw_warm_loop``), the loop's
 exit read on the host once per 8 linearisations.
+
+Every solver computes in float32 with autocast off, whatever
+``torch.autocast`` its caller runs under (the legacy GAMMA step calls EGWL
+inside its bf16 region), as the JAX solvers cast their inputs to float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -61,9 +66,20 @@ def _prep(feats: torch.Tensor, mask: torch.Tensor):
     return c.contiguous(), w.contiguous(), log_w.contiguous()
 
 
+@contextlib.contextmanager
+def _float32(device: torch.device):
+    """No gradient and autocast off: the solvers compute in float32 under
+    any ``torch.autocast`` the caller runs, as the JAX solvers cast their
+    inputs to float32 (autocast would run the self-costs' and the
+    linearisation's products in bf16)."""
+    with torch.no_grad(), torch.autocast(device_type=device.type,
+                                         enabled=False):
+        yield
+
+
 def _egw(x, y, x_mask, y_mask, *, epsilon, max_iterations, inner_sweeps,
          threshold, sinkhorn_threshold, plain) -> GWResult:
-    with torch.no_grad():
+    with _float32(x.device):
         cx, p, log_p = _prep(x, x_mask)
         cy, q, log_q = _prep(y, y_mask)
         solve = gw_solve_plain if plain else gw_solve
@@ -206,8 +222,9 @@ def entropic_gw_labels(
     max-scaled over all pairs, uniform marginals, the plan masked to pairs
     of equal labels (off-block entries carry cost 1e30) and started from
     the masked product plan. Computed on the tensors' device; ``n_iters``
-    grows in steps of 8. Results are 0-d tensors but ``coupling``."""
-    with torch.no_grad():
+    grows in steps of 8. Results are 0-d tensors but ``coupling``. Float32
+    and no gradient, whatever autocast or grad mode the caller runs under."""
+    with _float32(x.device):
         x = torch.nan_to_num(x.detach().to(torch.float32))
         y = torch.nan_to_num(y.detach().to(torch.float32))
         device = x.device

@@ -3,7 +3,8 @@
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` / ``flax.core.unfreeze`` output). Output:
 a ``state_dict`` of the port's ``MultimodalOTFusion`` (any pair of
-backbones), ``ResNet3DClassifier``, of one zoo backbone
+backbones), ``ResNet3DClassifier``, ``LegacyMultiModalFusion``
+(``legacy_state_dict_from_jax``), of one zoo backbone
 (``backbone_state_dict_from_jax``: ResNet3D, MedicalNet, Res2Net, Swin,
 UNETR), or of the eval harness's MLP (``mlp_state_dict_from_jax``).
 Layouts:
@@ -327,12 +328,39 @@ def fusion_state_dict_from_jax(params: Dict[str, Any],
     for name in ("mri2pet", "pet2mri", "mri_fusion", "pet_fusion"):
         _dense(out, f"{name}.dense0", params[name]["Dense_0"])
         _dense(out, f"{name}.dense1", params[name]["Dense_1"])
-    att = params["attention_mri"]
-    _mha(out, "attention_mri.attn", att["MultiHeadDotProductAttention_0"])
-    _layer_norm(out, "attention_mri.norm1", att["LayerNorm_0"])
-    _dense(out, "attention_mri.ff1", att["Dense_0"])
-    _dense(out, "attention_mri.ff2", att["Dense_1"])
-    _layer_norm(out, "attention_mri.norm2", att["LayerNorm_1"])
+    _attention_block(out, "attention_mri", params["attention_mri"])
+    _dense(out, "fc", params["fc"])
+    return out
+
+
+def _attention_block(out, prefix, tree) -> None:
+    """A ``SelfAttentionBlock`` from its flax subtree."""
+    _mha(out, f"{prefix}.attn", tree["MultiHeadDotProductAttention_0"])
+    _layer_norm(out, f"{prefix}.norm1", tree["LayerNorm_0"])
+    _dense(out, f"{prefix}.ff1", tree["Dense_0"])
+    _dense(out, f"{prefix}.ff2", tree["Dense_1"])
+    _layer_norm(out, f"{prefix}.norm2", tree["LayerNorm_1"])
+
+
+def legacy_state_dict_from_jax(params: Dict[str, Any],
+                               batch_stats: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``LegacyMultiModalFusion`` from the JAX
+    ``LegacyMultiModalFusion`` params and batch_stats trees: the Res2Net
+    and MedicalNet encoders, the three two-layer MLPs (flax's
+    ``fundus2oct_0`` / ``_1`` as ``fundus2oct.0`` / ``.1``), the fundus
+    attention block and ``fc``."""
+    stats = batch_stats or {}
+    out = res2net_state_dict_from_jax(params["fundus_encoder"],
+                                      stats.get("fundus_encoder"),
+                                      prefix="fundus_encoder")
+    out.update(medicalnet_state_dict_from_jax(params["oct_encoder"],
+                                              stats.get("oct_encoder"),
+                                              prefix="oct_encoder"))
+    for name in ("fundus2oct", "oct2fundus", "oct_fusion"):
+        for i in range(2):
+            _dense(out, f"{name}.{i}", params[f"{name}_{i}"])
+    _attention_block(out, "attention_fundus", params["attention_fundus"])
     _dense(out, "fc", params["fc"])
     return out
 

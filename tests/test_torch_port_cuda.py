@@ -9,7 +9,9 @@ reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs, a
 base train step that must not read the device from the host, a
 checkpoint snapshot of the card's tensors that must not alias them, and
 the eval harness's inputs: K2 under a label plan mask, on marginals with
-zeros and on a padded label down to eps 1e-5, K1 at 10 labels x cap 96. They
+zeros and on a padded label down to eps 1e-5, K1 at 10 labels x cap 96;
+and the legacy GAMMA step: its EGWL on the card against the CPU, K2 at its
+(6144, 2048) plan, one bf16 step with its launches. They
 import no JAX, so on a machine with a GPU they run without the
 repository's conftest:
 
@@ -26,8 +28,17 @@ from otfusion_tpu_torch.cli.bench_kernels import correlated_groups
 from otfusion_tpu_torch.models.fusion import MultimodalOTFusion
 from otfusion_tpu_torch.ops import gw_kernel, sinkhorn_kernel
 from otfusion_tpu_torch.ops.fot import feature_cost
-from otfusion_tpu_torch.ops.gromov import _prep, egw_per_label
+from otfusion_tpu_torch.models.legacy_fusion import LegacyMultiModalFusion
+from otfusion_tpu_torch.ops.gromov import (
+    _prep,
+    egw_per_label,
+    entropic_gw_labels,
+)
 from otfusion_tpu_torch.ops.sinkhorn import sinkhorn
+from otfusion_tpu_torch.train.legacy_steps import (
+    make_legacy_eval_step,
+    make_legacy_train_step,
+)
 from otfusion_tpu_torch.train.steps import make_fusion_train_step
 from otfusion_tpu_torch.train.train_state import make_optimizer
 from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_fixed
@@ -478,3 +489,87 @@ def test_k1_at_ten_labels_cap_96_matches_plain(cuda):
     _close(ker.coupling, ref.coupling, 1e-4)
     pad = ~(m[:, :, None] & m[:, None, :])
     assert float(ker.coupling[pad].abs().sum()) == 0.0
+
+
+def _legacy_features(cuda, seed):
+    """A 4-row batch of fundus (2048-d) and OCT (6144-d) features sharing
+    a latent, labels 0, 1, 0, 1: the legacy train step's EGWL input."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(4, 8))
+    f = z @ rng.normal(size=(8, 2048)) + 0.1 * rng.normal(size=(4, 2048))
+    o = z @ rng.normal(size=(8, 6144)) + 0.1 * rng.normal(size=(4, 6144))
+    to = lambda a: torch.from_numpy(np.abs(a).astype(np.float32)).to(cuda)  # noqa: E731
+    return to(f), to(o), torch.tensor([0, 1, 0, 1], device=cuda)
+
+
+def test_egwl_on_the_card_matches_the_cpu(cuda):
+    """The legacy step's EGWL both ways (PyTorch ops, never K1): the same
+    n_iters as on the CPU, plans within 1e-4 of max T, float32 under bf16
+    autocast."""
+    f, o, y = _legacy_features(cuda, 30)
+    before = gw_kernel.COUNTER.count
+    for a, b in ((f, o), (o, f)):
+        with torch.autocast("cuda", torch.bfloat16):
+            card = entropic_gw_labels(a, b, y, y, epsilon=5e-3,
+                                      max_iterations=500)
+        cpu = entropic_gw_labels(a.cpu(), b.cpu(), y.cpu(), y.cpu(),
+                                 epsilon=5e-3, max_iterations=500)
+        assert card.coupling.dtype == torch.float32
+        assert int(card.n_iters) == int(cpu.n_iters)
+        _close(card.coupling.cpu(), cpu.coupling, 1e-4)
+    assert gw_kernel.COUNTER.count == before
+
+
+def test_k2_at_the_legacy_step_plan_matches_plain(cuda):
+    """K2 on the (6144, 2048) FOT cost of a 4-row EGWL plan at eps 5e-3
+    (the legacy step's ``fot(o, f, t_f2o.T)``): one launch, the plain
+    version's n_iters, the plan within 1e-4 of max T."""
+    f, o, y = _legacy_features(cuda, 31)
+    t_f2o = entropic_gw_labels(f, o, y, y, epsilon=5e-3,
+                               max_iterations=500).coupling
+    ts = t_f2o.T / t_f2o.sum()
+    cost = feature_cost(o, f, ts).contiguous()
+    assert cost.shape == (6144, 2048)
+    kw = dict(epsilon=5e-3, threshold=1e-3, scale_cost=True)
+    before = sinkhorn_kernel.COUNTER.count
+    ker = sinkhorn(cost, **kw)
+    assert sinkhorn_kernel.COUNTER.count == before + 1
+    ref = _plain_on_cpu(cost, **kw)
+    assert int(ker.n_iters) == int(ref.n_iters)
+    _close(ker.coupling.cpu(), ref.coupling, 1e-4)
+
+
+def test_legacy_train_step_on_the_card(cuda):
+    """One bf16 legacy step at fundus 64^2, OCT 16^3 (d_oct 1024): K2 once
+    (the step's FOT), K1 never (EGWL is PyTorch ops), finite losses, every
+    parameter updated where its gradient is finite, logits float32 in
+    eval."""
+    torch.manual_seed(0)
+    model = LegacyMultiModalFusion(num_classes=2, oct_feature_dim=1024,
+                                   oct_input_depth=16).to(cuda)
+    optimizer = make_optimizer(model.parameters(), 1e-4)
+    step = make_legacy_train_step(model, optimizer,
+                                  compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(32)
+    fundus = torch.from_numpy(rng.uniform(size=(4, 64, 64, 3)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    oct_vol = torch.from_numpy(rng.uniform(size=(4, 16, 16, 16, 1)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    labels = torch.tensor([0, 1, 0, 1], device=cuda)
+    generator = torch.Generator(cuda).manual_seed(0)
+    k1, k2 = gw_kernel.COUNTER.count, sinkhorn_kernel.COUNTER.count
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    met = step(fundus, oct_vol, labels, generator)
+    assert gw_kernel.COUNTER.count == k1
+    assert sinkhorn_kernel.COUNTER.count == k2 + 1
+    for key in ("loss", "ce_loss", "ot_loss"):
+        assert torch.isfinite(met[key]).item(), key
+    assert met["loss"].device.type == "cuda"
+    moved = sum(int(not torch.equal(before[k], p.detach()))
+                for k, p in model.named_parameters())
+    assert moved >= 0.9 * len(before)
+    tv = torch.full((1024, 2048), 1.0 / (1024 * 2048), device=cuda)
+    out = make_legacy_eval_step(compute_dtype=torch.bfloat16)(
+        model, fundus, oct_vol, labels, tv)
+    assert out["logits"].dtype == torch.float32
+    assert torch.isfinite(out["logits"]).all()
