@@ -77,7 +77,27 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ECOOTL and ``feature-matching EGW_ott``, each with its launches
      (finite couplings, FOSCTTM below the random coupling's); then all
      nine OT methods on a small screen with ``--device cuda`` and
-     ``--device cpu`` (plans and metrics within 1e-4, the same counts).
+     ``--device cpu`` (plans and metrics within 1e-4, the same counts);
+11b. holds K1's device route (labels above 128 rows: one cooperative
+     launch, the labels in device memory) against its plain version on the
+     card at 2 labels x cap 129 (one padded), at 4 labels x 200-400 rows
+     and at phase 11's whole screen as one label (``EGW_all_ott``'s input):
+     the same n_iters (or one check apart, logged), the plan within 1e-4 of
+     max T, one launch, times beside the bound; then ``all EGW_all_ott`` on
+     phase 11's screen and ``all EGW_ott`` on the 4-label screen, each on
+     ``--device cuda`` and ``--device cpu`` (couplings within 1e-4 of max
+     T, FOSCTTM below the random coupling's, one device-route launch);
+11c. drives the harness's VAE family on phase 11's screen: ``all
+     VAE_label`` (10,128,1e-4: 600 steps), ``loo VAE`` and ``loo EGW_ott
+     --latent-vae`` (two 10-wide VAEs of 500 steps a fold, K1 once a fold;
+     the VAE methods launch no kernel): finite outputs, the last step's
+     reconstruction below the first's; then the first 10 steps of
+     ``train_vae_model`` and ``train_modality_vae`` from the same weights
+     and noise, the card against the CPU in float64 (losses within 1e-4,
+     99.9 % of the parameters within 1e-5) and the card's float32 against
+     its float64 (losses within 1e-3: Adam amplifies float32 rounding), and
+     each trainer's step loop under ``torch.cuda.set_sync_debug_mode
+     ("error")`` (no host read), ms a step.
 
 Each kernel's ``bound_ms`` is the least time an H100 could take for the
 work of this run's inputs (``k1_bound``, ``k2_bound``); ``library_ms`` is
@@ -88,7 +108,9 @@ the line before it is the kernels' JSON summary (``launches`` counts every
 run's launches; K2's ``base_*`` keys are its times at the base inputs,
 B = 8, ``hetero`` its times at the hetero plans, each kernel's
 ``perturbot`` its times at the harness's inputs and ``gamma`` at the
-legacy GAMMA trainer's). ``--kernels-only`` stops after phase 5 and prints no result line.
+legacy GAMMA trainer's; K1's device route is an entry of its own, timed at
+phase 11's whole screen, its ``cases`` at all three inputs).
+``--kernels-only`` stops after phase 5 and prints no result line.
 """
 
 from __future__ import annotations
@@ -505,10 +527,15 @@ def _drive(tag, module, argv):
     torch.cuda.synchronize()
     sinkhorn_kernel.COUNTER.reset()
     gw_kernel.COUNTER.reset()
+    gw_kernel.DEVICE_COUNTER.reset()
     t0 = time.perf_counter()
     result = module.main(["--device", "cuda", *argv])
     launches = {"sinkhorn": sinkhorn_kernel.COUNTER.count,
                 "gw": gw_kernel.COUNTER.count}
+    # K1's device route (labels above 128 rows) appears where it ran, so a
+    # stray launch of it fails every earlier run's check of its counts.
+    if gw_kernel.DEVICE_COUNTER.count:
+        launches["gw_device"] = gw_kernel.DEVICE_COUNTER.count
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     log(f"[{tag}] run {seconds:.2f} s; launches {launches}")
@@ -1721,6 +1748,415 @@ def phase_perturbot(work):
     return runs, {"k1": k1, "k2": k2, "runs": summary}
 
 
+# phase_k1_device: K1's device route (labels above 128 rows). The screen of
+# 4 labels x 200-400 rows is phase 11's kind at the sizes real screens have
+# per treatment; EGW_all_ott couples phase 11's whole screen as one label.
+LARGE_LABELS = 4
+LARGE_ROWS = (200, 400)
+LARGE_SEED = 17
+K1_DEVICE_RUNS = 5
+
+
+def _phase11_screen():
+    import numpy as np
+
+    return _screen(np.random.default_rng(11), PERTURBOT_LABELS,
+                   PERTURBOT_ROWS, PERTURBOT_WIDTH, PERTURBOT_DEAD)
+
+
+def _k1_device_case(tag, x, y, m):
+    """K1's device route against its plain version on the card: one
+    device-route launch and no cluster launch, the same n_iters per label
+    (one check apart at most, logged), the plan within 1e-4 of max T, no
+    mass on padding; median times of K1_DEVICE_RUNS solves beside the
+    bound."""
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import time_ms
+    from otfusion_tpu_torch.ops import gw_kernel
+    from otfusion_tpu_torch.ops.gromov import _prep, egw_per_label
+
+    L, cap = m.shape
+    before = gw_kernel.COUNTER.count, gw_kernel.DEVICE_COUNTER.count
+    ker = egw_per_label(x, y, m, m, epsilon=PERTURBOT_EPS)
+    launches = (gw_kernel.COUNTER.count - before[0],
+                gw_kernel.DEVICE_COUNTER.count - before[1])
+    ref = egw_per_label(x, y, m, m, epsilon=PERTURBOT_EPS, plain=True)
+    torch.cuda.synchronize()
+    it_k, it_r = ker.n_iters.tolist(), ref.n_iters.tolist()
+    t_max = float(ref.coupling.max())
+    diff = float((ker.coupling - ref.coupling).abs().max())
+    pad = float((ker.coupling * ~(m[:, :, None] & m[:, None, :])).abs().sum())
+    log(f"[k1-device] {tag}: {L} labels x cap {cap} (rows "
+        f"{m.sum(1).tolist()}): n_iters kernel {it_k} plain {it_r}; max|dT| "
+        f"{diff:.3e} = {diff / t_max:.3e} max T; mass on padding {pad}; "
+        f"launches (cluster, device) {launches}")
+    check(launches == (0, 1), f"K1 {tag}: launches {launches}, want one on "
+          "the device route")
+    if it_k != it_r:
+        log(f"[k1-device] {tag}: n_iters differ (kernel {it_k}, plain {it_r})")
+    check(all(abs(a - b) <= 8 for a, b in zip(it_k, it_r)),
+          f"K1 {tag}: n_iters more than one check apart")
+    check(diff <= 1e-4 * t_max, f"K1 {tag}: plan differs by more than 1e-4 "
+          "max T")
+    check(pad == 0.0, f"K1 {tag}: mass on padding")
+    cx, p, log_p = _prep(x, m)
+    cy, q, log_q = _prep(y, m)
+    args = (cx, cy, log_p, log_q, p, q)
+    ms = time_ms(lambda: gw_kernel.gw_solve(*args, epsilon=PERTURBOT_EPS),
+                 K1_DEVICE_RUNS)
+    plain_ms = time_ms(lambda: gw_kernel.gw_solve_plain(
+        *args, epsilon=PERTURBOT_EPS), K1_DEVICE_RUNS)
+    bound_ms, bound_by = k1_bound(L, cap, it_k)
+    log(f"[k1-device] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(median of {K1_DEVICE_RUNS}), bound {bound_ms:.5f} ms "
+        f"({bound_by}), {bound_ms / ms:.4f} of the bound")
+    return {"labels": L, "cap": cap, "n_iters": it_k, "plain_n_iters": it_r,
+            "max_abs_err": diff, "rel_err": diff / t_max, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches_per_solve": 1}
+
+
+def _cli_card_and_cpu(tag, work, screen_path, method, eps, want):
+    """``all <method>`` on the card (launches as ``want``) and on the CPU:
+    couplings within 1e-4 of max T, FOSCTTM below the random coupling's;
+    returns (launches, summary)."""
+    import pickle
+
+    import numpy as np
+
+    from otfusion_tpu_torch.cli import perturbot_eval
+    from otfusion_tpu_torch.eval.matching import get_FOSCTTM
+
+    common = ["--quiet", "all", method, str(screen_path), eps]
+    _, launches, seconds = _drive(tag, perturbot_eval, [
+        "--out-dir", str(work / "k1d_cuda"), *common])
+    t0 = time.perf_counter()
+    perturbot_eval.main(["--device", "cpu", "--out-dir",
+                         str(work / "k1d_cpu"), *common])
+    cpu_seconds = time.perf_counter() - t0
+    name = f"all_{method}.{eps}.pkl"
+    a = pickle.loads((work / "k1d_cuda" / name).read_bytes())
+    b = pickle.loads((work / "k1d_cpu" / name).read_bytes())
+    pa, pb = _plans(a["T"]), _plans(b["T"])
+    d_plan = float(np.abs(pa - pb).max() / np.abs(pb).max())
+    screen = pickle.loads(screen_path.read_bytes())
+    xs, ys = screen["Xs_dict"], screen["Xt_dict"]
+    if isinstance(a["T"], dict):
+        random_t = {k: np.ones((xs[k].shape[0], ys[k].shape[0])) for k in xs}
+    else:
+        random_t = np.ones(a["T"].shape)
+    _, random_foscttm = get_FOSCTTM(random_t, xs, ys)
+    foscttm = a["matching_evals"]["mean_foscttm"]
+    counts = _walk_counts(a["log"]), _walk_counts(b["log"])
+    log(f"[{tag}] cuda against cpu: max|dT| {d_plan:.3e} max T; FOSCTTM "
+        f"{foscttm:.4f} (cpu {b['matching_evals']['mean_foscttm']:.4f}, "
+        f"random {random_foscttm:.4f}); counts {counts[0]} (cpu "
+        f"{counts[1]}); launches {launches} (want {want}); cuda {seconds:.2f}"
+        f" s, cpu {cpu_seconds:.2f} s")
+    check(bool(np.isfinite(pa).all()), f"[{tag}] coupling not finite")
+    check(d_plan <= 1e-4, f"[{tag}] card and CPU plans differ by {d_plan} "
+          "max T")
+    check(foscttm < random_foscttm, f"[{tag}] FOSCTTM {foscttm} not below "
+          f"the random coupling's {random_foscttm}")
+    check(launches == want, f"[{tag}] launches {launches}, want {want}")
+    return launches, {"seconds": seconds, "cpu_seconds": cpu_seconds,
+                      "foscttm": foscttm, "random_foscttm": random_foscttm,
+                      "plan_diff": d_plan, "counts": counts[0]}
+
+
+def phase_k1_device(work):
+    """(11b) K1's device route: against its plain version at the boundary,
+    at 4 labels x 200-400 rows and at phase 11's screen as one label; then
+    the CLI's ``all EGW_all_ott`` and ``all EGW_ott`` at those inputs, card
+    against CPU. Returns ({run: launches}, {case: numbers}, summary)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.ops.api import _concat_dicts, _pad_dicts
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    x, y, m, _ = _gw_inputs(129, 100)
+    cases["cap129"] = _k1_device_case("2 labels x cap 129, d 2048", x, y, m)
+    large = _screen(np.random.default_rng(LARGE_SEED), LARGE_LABELS,
+                    LARGE_ROWS, PERTURBOT_WIDTH, PERTURBOT_DEAD)
+    _, xs, ys, xm, _ = _pad_dicts(large["Xs_dict"], large["Xt_dict"],
+                                  common_cap=True)
+    cuda = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    cases["labels4"] = _k1_device_case(
+        "4 labels x 200-400 rows, d 2048", cuda(xs), cuda(ys), cuda(xm))
+    screen = _phase11_screen()
+    _, xa, ya, _, _ = _concat_dicts(screen["Xs_dict"], screen["Xt_dict"])
+    ones = torch.ones((1, xa.shape[0]), dtype=torch.bool, device="cuda")
+    cases["screen"] = _k1_device_case(
+        "phase 11's screen as one label", cuda(xa)[None], cuda(ya)[None],
+        ones)
+    t_kernels = time.perf_counter() - t0
+
+    runs, summary = {}, {"kernels_s": t_kernels}
+    eps = str(PERTURBOT_EPS)
+    for tag, data, method in (("k1d-EGW_all_ott", screen, "EGW_all_ott"),
+                              ("k1d-EGW_ott", large, "EGW_ott")):
+        path = work / f"{tag}.pkl"
+        path.write_bytes(pickle.dumps(data))
+        runs[tag], summary[method] = _cli_card_and_cpu(
+            tag, work, path, method, eps,
+            {"sinkhorn": 0, "gw": 0, "gw_device": 1})
+    shutil.rmtree(work / "k1d_cuda")
+    shutil.rmtree(work / "k1d_cpu")
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[k1-device] phase {summary['seconds']:.2f} s (kernels "
+        f"{t_kernels:.2f} s)")
+    return runs, cases, summary
+
+
+# phase_vae: the harness's VAE family on phase 11's screen, at the
+# reference's grid point for the shared-latent VAE and the scVI-sized
+# latent for VAE-then-OT.
+VAE_EPS = "10,128,1e-4"
+VAE_LATENT = 10
+VAE_PARITY_STEPS = 10
+VAE_SYNC_STEPS = 50
+
+
+def _params_apart(a, b):
+    """(share of parameter entries more than 1e-5 apart, largest gap)."""
+    import numpy as np
+
+    da = np.concatenate([(a[k].double().cpu() - b[k].double().cpu()).abs()
+                         .numpy().ravel() for k in a])
+    return float(np.mean(da > 1e-5)), float(da.max())
+
+
+# Full-batch Adam scales each entry's step by its gradient's size, so the
+# entries whose gradients are rounding noise move apart step by step: at
+# phase 11's screen the CPU's own float32 steps of the shared-latent VAE
+# part from its float64 steps by 2e-6 after one step and 8.4e-5 (relative,
+# the discriminator's loss) after ten, so two float32 runs part by about
+# twice that. Card and CPU are held to each other in float64 at the CPU
+# tests' tolerances, and the card's float32 to its float64 at
+# VAE_FLOAT32_LOSS.
+VAE_FLOAT32_LOSS = 1e-3
+
+
+def _vae_card_against_cpu(tag, make, optimizers, step, lr, draw):
+    """The first VAE_PARITY_STEPS steps from the same weights (``make()`` on
+    the CPU: (model, inputs)) and the same normals (``draw(generator)``, on
+    the CPU): the card against the CPU in float64, losses within 1e-4
+    relative at every step, 99.9 % of the parameters within 1e-5 and all
+    within 2 lr steps (the CPU tests' bounds against JAX); the card's
+    float32 against its float64, losses within VAE_FLOAT32_LOSS, the
+    parameters within 2 lr steps."""
+    import copy
+
+    import torch
+
+    def to(v, device, dtype):
+        if torch.is_tensor(v):
+            return v.to(device, dtype)
+        return type(v)(*(t if t is None else t.to(device, dtype) for t in v))
+
+    model, inputs = make()
+    runs = {}
+    for key, device, dtype in (("cpu64", "cpu", torch.float64),
+                               ("card64", "cuda", torch.float64),
+                               ("card32", "cuda", torch.float32)):
+        m = copy.deepcopy(model).to(device, dtype)
+        runs[key] = (m, optimizers(m), to(inputs, device, dtype), dtype,
+                     device)
+    gen = torch.Generator().manual_seed(5)
+    losses = {k: [] for k in runs}
+    for _ in range(VAE_PARITY_STEPS):
+        noise = draw(gen)
+        for key, (m, opt, x, dtype, device) in runs.items():
+            out = step(m, opt, x, [n.to(device, dtype) for n in noise])
+            losses[key].append(out.double().cpu())
+    loss = {k: torch.stack(v) for k, v in losses.items()}
+    rel64 = float(((loss["card64"] - loss["cpu64"]).abs()
+                   / loss["cpu64"].abs()).max())
+    rel32 = float(((loss["card32"] - loss["card64"]).abs()
+                   / loss["card64"].abs()).max())
+    state = {k: v[0].state_dict() for k, v in runs.items()}
+    share64, gap64 = _params_apart(state["card64"], state["cpu64"])
+    share32, gap32 = _params_apart(state["card32"], state["card64"])
+    log(f"[vae] {tag}: {VAE_PARITY_STEPS} steps, card against CPU in "
+        f"float64: losses {rel64:.3e} relative at worst, parameters "
+        f"{share64:.2e} more than 1e-5 apart, {gap64:.3e} at most; the card's "
+        f"float32 against its float64: losses {rel32:.3e}, parameters "
+        f"{share32:.2e} more than 1e-5 apart, {gap32:.3e} at most")
+    bound = 2 * lr * VAE_PARITY_STEPS
+    check(rel64 <= 1e-4 and share64 <= 1e-3 and gap64 <= bound,
+          f"[vae] {tag}: card and CPU apart in float64 ({rel64}, {share64}, "
+          f"{gap64})")
+    check(rel32 <= VAE_FLOAT32_LOSS and gap32 <= bound,
+          f"[vae] {tag}: float32 apart from float64 ({rel32}, {gap32})")
+    return {"loss_rel_64": rel64, "params_share_apart_64": share64,
+            "params_max_gap_64": gap64, "loss_rel_32": rel32,
+            "params_share_apart_32": share32, "params_max_gap_32": gap32}
+
+
+def _loop_without_sync(tag, run, steps):
+    """``run(steps)`` (a trainer's step loop) under
+    ``set_sync_debug_mode("error")``: a host read raises. Then the ms a
+    step of another such loop, between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(steps)
+    except RuntimeError as err:
+        fail(f"[vae] {tag}: a host read in the step loop: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(steps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    log(f"[vae] {tag}: {steps} steps without a host read; {ms:.4f} ms a "
+        "step")
+    return ms
+
+
+def phase_vae(work):
+    """(11c) The VAE family through the CLI on phase 11's screen, card
+    against CPU over the first steps, and the step loops without a host
+    read. Returns ({run: launches}, summary)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.cli import perturbot_eval
+    from otfusion_tpu_torch.eval import preprocess, vae
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    screen = _phase11_screen()
+    data = (screen["Xs_dict"], screen["Xt_dict"])
+    path = work / "vae_screen.pkl"
+    path.write_bytes(pickle.dumps(screen))
+    out = work / "vae"
+    adv_w, latent, lr = perturbot_eval._parse_eps(VAE_EPS)
+    runs, summary = {}, {}
+    none = {"sinkhorn": 0, "gw": 0}
+
+    # all VAE_label at the reference's grid point
+    _, launches, seconds = _drive("vae-all-VAE_label", perturbot_eval, [
+        "--quiet", "--out-dir", str(out), "all", "VAE_label", str(path),
+        VAE_EPS])
+    res = pickle.loads((out / f"all_VAE_label.{(adv_w, latent, lr)}.pkl")
+                       .read_bytes())
+    me, vlog = res["matching_evals"], res["log"]
+    model, batch = vae.init_vae_match(data, latent, True, device="cuda")
+    gen_opt, disc_opt = vae.make_optimizers(model, lr)
+    first = vae.vae_match_steps(model, gen_opt, disc_opt, batch, 1, 0,
+                                adv_w)
+    first_recon = float(first[0, 2])
+    finite = [me["mean_foscttm"], *me["dfracs"].values(),
+              *me["rel_dfracs"].values(),
+              *(v for k, v in vlog.items() if k.startswith("final"))]
+    log(f"[vae-all-VAE_label] FOSCTTM {me['mean_foscttm']:.4f}, rel dfracs "
+        f"{me['rel_dfracs']}; recon {first_recon:.5f} at the first step, "
+        f"{vlog['final_recon']:.5f} at the last; {seconds:.2f} s")
+    check(bool(np.isfinite(finite).all()), "[vae-all-VAE_label] not finite")
+    check(vlog["final_recon"] < first_recon,
+          "[vae-all-VAE_label] final recon not below the first step's")
+    check(launches == none, f"[vae-all-VAE_label] launches {launches}")
+    runs["vae-all-VAE_label"] = launches
+    summary["all_VAE_label"] = {"seconds": seconds,
+                                "foscttm": me["mean_foscttm"],
+                                "first_recon": first_recon,
+                                "final_recon": vlog["final_recon"]}
+
+    # loo VAE: one shared-latent VAE a fold
+    _, launches, seconds = _drive("vae-loo-VAE", perturbot_eval, [
+        "--quiet", "--out-dir", str(out), "loo", "VAE", str(path), VAE_EPS])
+    res = pickle.loads((out / f"loo_VAE.{(adv_w, latent, lr)}.pkl")
+                       .read_bytes())
+    mses = [r["MSE"] for r in res["evals"]]
+    preds = np.concatenate([np.ravel(v) for v in res["log"]["preds"]
+                            .values()])
+    recon = [lg["final_recon"] for lg in res["log"]["logs"].values()]
+    log(f"[vae-loo-VAE] {len(mses)} folds: MSE {min(mses):.4f}-"
+        f"{max(mses):.4f}; final recon {min(recon):.4f}-{max(recon):.4f}; "
+        f"{seconds:.2f} s")
+    check(len(mses) == PERTURBOT_LABELS and bool(np.isfinite(mses).all())
+          and bool(np.isfinite(preds).all()), "[vae-loo-VAE] not finite")
+    check(launches == none, f"[vae-loo-VAE] launches {launches}")
+    runs["vae-loo-VAE"] = launches
+    summary["loo_VAE"] = {"seconds": seconds, "mse": [min(mses), max(mses)]}
+
+    # loo EGW_ott --latent-vae: two VAEs and one K1 solve a fold
+    _, launches, seconds = _drive("vae-loo-latent-EGW_ott", perturbot_eval, [
+        "--quiet", "--out-dir", str(out), "loo", "EGW_ott", str(path),
+        str(PERTURBOT_EPS), "--latent-vae", "--latent-dim",
+        str(VAE_LATENT)])
+    res = pickle.loads((out / f"loo_vae_EGW_ott.{PERTURBOT_EPS}.pkl")
+                       .read_bytes())
+    rows = [r for r in res["evals"] if r["_id"] == "ot_latent"]
+    preds = np.concatenate([np.ravel(v[0]) for v in res["log"]["preds"]
+                            .values()])
+    vlogs = [v for fold in res["log"]["vae_logs"].values()
+             for v in fold.values()]
+    falls = all(v["losses"][-1] < v["losses"][0] for v in vlogs)
+    counts = _walk_counts(res["log"]["logs"])
+    log(f"[vae-loo-latent-EGW_ott] {len(rows)} folds, {len(vlogs)} VAEs: "
+        f"ot_latent MSE {min(r['MSE'] for r in rows):.4f}-"
+        f"{max(r['MSE'] for r in rows):.4f}; every VAE's loss fell {falls}; "
+        f"K1 counts {sorted(set(counts.values()), key=str)}; launches "
+        f"{launches}; {seconds:.2f} s")
+    check(len(rows) == PERTURBOT_LABELS and bool(np.isfinite(preds).all())
+          and all(np.isfinite(r["MSE"]) for r in rows),
+          "[vae-loo-latent-EGW_ott] not finite")
+    check(falls, "[vae-loo-latent-EGW_ott] a VAE's loss did not fall")
+    check(launches == {"sinkhorn": 0, "gw": PERTURBOT_LABELS},
+          f"[vae-loo-latent-EGW_ott] launches {launches}, want K1 once a "
+          "fold")
+    runs["vae-loo-latent-EGW_ott"] = launches
+    summary["loo_latent_EGW_ott"] = {"seconds": seconds}
+    shutil.rmtree(out)
+
+    # the first steps card against CPU, then the loops without a host read
+    n_x = sum(v.shape[0] for v in data[0].values())
+
+    summary["parity_match"] = _vae_card_against_cpu(
+        "train_vae_model",
+        lambda: vae.init_vae_match(data, latent, True, device="cpu"),
+        lambda m: vae.make_optimizers(m, lr),
+        lambda m, o, b, n: vae.vae_match_step(m, *o, b, *n, adv_w), lr,
+        lambda g: [torch.randn((n_x, latent), generator=g),
+                   torch.randn((n_x, latent), generator=g)])
+    summary["parity_modality"] = _vae_card_against_cpu(
+        "train_modality_vae",
+        lambda: preprocess.init_modality_vae(data[0], VAE_LATENT,
+                                             device="cpu"),
+        lambda m: preprocess.make_adam(m.parameters(), 1e-3),
+        lambda m, o, x, n: preprocess.modality_vae_step(m, o, x, *n), 1e-3,
+        lambda g: [torch.randn((n_x, VAE_LATENT), generator=g)])
+    model, batch = vae.init_vae_match(data, latent, True, device="cuda")
+    opts = vae.make_optimizers(model, lr)
+    summary["match_step_ms"] = _loop_without_sync(
+        "train_vae_model", lambda n: vae.vae_match_steps(
+            model, *opts, batch, n, 0, adv_w), VAE_SYNC_STEPS)
+    mvae, xn = preprocess.init_modality_vae(data[0], VAE_LATENT,
+                                            device="cuda")
+    mopt = preprocess.make_adam(mvae.parameters(), 1e-3)
+    summary["modality_step_ms"] = _loop_without_sync(
+        "train_modality_vae", lambda n: preprocess.modality_vae_steps(
+            mvae, mopt, xn, n, 0), VAE_SYNC_STEPS)
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[vae] phase {summary['seconds']:.2f} s")
+    return runs, summary
+
+
 # phase_gamma: the legacy GAMMA fundus+OCT trainer and its ensemble tester.
 # The cohort is written at a photograph-like 512^2 and OCT 112^3, so the
 # loader's resizes to the CLI defaults (384^2, 96^3: d_oct = 6144) run.
@@ -2131,10 +2567,16 @@ def main(argv=None) -> None:
         runs["config5"], config5 = phase_config5(work)
         perturbot_runs, perturbot = phase_perturbot(work)
         runs.update(perturbot_runs)
+        k1d_runs, k1_device, k1d_summary = phase_k1_device(work)
+        runs.update(k1d_runs)
+        vae_runs, vae_summary = phase_vae(work)
+        runs.update(vae_runs)
         gamma_runs, gamma_kernels, gamma = phase_gamma(work)
         runs.update(gamma_runs)
-    total = {k: sum(r[k] for r in runs.values()) for k in ("sinkhorn", "gw")}
+    total = {k: sum(r.get(k, 0) for r in runs.values())
+             for k in ("sinkhorn", "gw", "gw_device")}
     log(f"[trainers] launches per run {json.dumps(runs)}; total {total}")
+    check(all(total.values()), f"a kernel was never launched: {total}")
     log(f"[base] {json.dumps(base)}")
     log("[lifecycle] " + json.dumps({"serve": serve,
                                      "uni_serve": uni_serve,
@@ -2143,6 +2585,8 @@ def main(argv=None) -> None:
     log("[hetero] " + json.dumps({"serve": hetero_serve,
                                   "config5": config5}))
     log("[perturbot] " + json.dumps(perturbot["runs"]))
+    log("[k1-device] " + json.dumps(k1d_summary))
+    log("[vae] " + json.dumps(vae_summary))
     log("[gamma] " + json.dumps(gamma))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2155,6 +2599,12 @@ def main(argv=None) -> None:
          "replaces": "otfusion_tpu/experimental/gw_kernel.py:149",
          "launches": total["gw"], **{k: k1[k] for k in keys},
          "perturbot": perturbot["k1"], "gamma": gamma_kernels["k1"],
+         "library_ms": None},
+        {"name": "gw_solve_device", "route": "cuda",
+         "source": "otfusion_tpu_torch/csrc/gw.cu",
+         "replaces": "otfusion_tpu/experimental/gw_kernel.py:149",
+         "launches": total["gw_device"],
+         **{k: k1_device["screen"][k] for k in keys}, "cases": k1_device,
          "library_ms": None},
         {"name": "sinkhorn", "route": "cuda",
          "source": "otfusion_tpu_torch/csrc/sinkhorn.cu",

@@ -15,9 +15,11 @@ reference's chemical-screen layout — ``Xs_dict``, ``Xt_dict``,
 ``Zs_dict``/``Zt_dict`` (optionally nested under ``"dosage"``).
 
 ``--device cuda`` (the default; it raises without a GPU) runs the OT
-solves and the MLP on the card, kernels K1 and K2 included; ``--device
-cpu`` runs their plain versions. The VAE methods and ``loo --latent-vae``
-raise ``NotImplementedError``: they are not ported yet.
+solves, the VAE methods' training and the MLP on the card, kernels K1 and
+K2 included; ``--device cpu`` runs the kernels' plain versions. The VAE
+methods (``VAE``, ``VAE_label``) take ``adv,latent_dim,lr`` in place of an
+epsilon; ``loo --latent-vae`` trains two per-modality VAEs per fold and
+couples their latents with the OT method.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="epsilon, or adv,latent_dim,lr for VAE methods")
     p.add_argument("--latent-vae", action="store_true",
                    help="VAE-then-OT: train a per-modality VAE per fold "
-                        "and couple the latents (not ported yet: raises)")
+                        "and couple the latents with the OT method")
     p.add_argument("--latent-dim", type=int, default=10,
                    help="per-modality VAE latent width (scVI default)")
 

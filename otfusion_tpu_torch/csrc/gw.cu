@@ -1,5 +1,8 @@
-// Whole-solve entropic Gromov-Wasserstein, one thread-block cluster per
-// label — kernel K1.
+// Whole-solve entropic Gromov-Wasserstein — kernel K1, two routes: one
+// thread-block cluster per label in shared memory (cap <= 128, the cluster
+// route), or one persistent cooperative launch over all labels with the
+// label's matrices in device memory (any cap, the device route; described
+// after the cluster kernel below).
 //
 // Replaces the Pallas TPU kernel `gw_solve_pallas`
 // (otfusion_tpu/experimental/gw_kernel.py:149, body `_gw_kernel` :48-141),
@@ -533,6 +536,497 @@ cudaError_t launch(const float* cx, const float* cy, const float* log_p,
 // Register tile rounded up to 1, 2 or 4.
 int tile(int x) { return x <= 1 ? 1 : (x <= 2 ? 2 : 4); }
 
+
+// ---------------------------------------------------------------------------
+// The device route: caps above kMaxCap.
+//
+// A label of cap > 128 does not fit one cluster's shared memory, so this
+// route keeps, per label, Cx and Cy (the inputs), T (the output buffer), the
+// T of the last check, U = T Cy^T, M and K = -M / eps in device memory (at
+// cap 960 each is 3.7 MB, so one label's set stays in the H100's 50 MB L2),
+// with constC kept as its two vectors Cx^2 p and Cy^2 q (constC[i][j] =
+// cx2p[i] + cy2q[j], as the cluster route forms it) and the duals f, g as
+// vectors. It computes exactly what gw_solve_plain (ops/gw_kernel.py) and
+// the cluster route compute: per linearisation M = constC - 2 Cx (T Cy^T)
+// (1e30 on padded pairs), `inner_sweeps` warm-started log-domain sweeps
+// (row logsumexp for f, then column logsumexp for g), T = exp((f + g - M) /
+// eps) (0 on padded pairs); every 8 linearisations the relative Frobenius
+// change, the best error and the stall count per label. Each label freezes
+// on its own: a label whose condition fails is skipped by every later phase.
+//
+// What bounds it: at cap 960 a linearisation is two cap^3 products (1.8
+// GFLOP) and 21 passes over cap^2 entries; every phase depends on the one
+// before, so a solve is a chain of grid-wide phases.
+//
+// Design (simple first; tensor cores, TMA and fusion of phases wait for a
+// later change):
+//  * One persistent cooperative launch per solve: grid = 2 blocks per SM at
+//    most (fewer where the problem has fewer work items), 256 threads a
+//    block. Blocks walk the work items of each phase with a grid stride and
+//    meet at a grid barrier between phases (the counter barrier of
+//    sinkhorn.cu, copied).
+//  * The two products are tiled in shared memory in the kernel's own body:
+//    64 x 64 output tiles over (label, row tile, column tile), depth 16 a
+//    stage, a 4 x 4 register tile per thread, fp32 FMA (no TF32). U = T Cy^T
+//    reads both operands along their rows; M = constC - 2 Cx U reads U down
+//    its columns, and its epilogue writes M (masked) and K = -M / eps.
+//  * Row pass (f): a warp per (label, row), chunks of 8 terms with a running
+//    (max, sum), then a butterfly. Column pass (g): a block per (label, strip
+//    of 32 columns), a lane per column and a warp per 8th row, the 8 warps'
+//    partials merged in order. Plan: a warp per row; on the 8th
+//    linearisation of a check it also sums the row's ||dT||^2 and ||T||^2 and
+//    writes the new T into the last check's copy.
+//  * The exit: block 0 sums each label's row partials in a fixed order,
+//    updates err / best / stall / it and the label's flag in device memory,
+//    then a grid barrier; every block reads the same flags. Each (max, sum)
+//    and each norm is formed by exactly one warp or block in a fixed order:
+//    a rerun gives the same bits.
+//  * Data written during the solve is read with __ldcg (L2, past the SM's
+//    L1) and written with __stcg; the inputs are read with __ldg.
+
+constexpr int kDevThreads = 256;
+constexpr int kDevWarps = kDevThreads / 32;
+constexpr int kDevBlocksPerSm = 2;
+constexpr int kTile = 64;      // product output tile, kTile x kTile
+constexpr int kTileK = 16;     // product depth per shared-memory stage
+constexpr int kTileLd = kTile + 4;
+constexpr int kStrip = 32;     // columns of one block in the column pass
+constexpr int kChunk = 8;      // terms per rescale of a running (max, sum)
+
+// Floats of static shared memory: the two product stages and the column
+// pass's per-warp partials. ops/gw_kernel.py:gw_device_layout computes the
+// same.
+constexpr int kDevSmemFloats = 2 * kTileK * kTileLd + 2 * kDevWarps * kStrip;
+
+struct DevLayout {
+  int tiles;   // product tiles per side
+  int strips;  // column strips per label
+  int grid;
+};
+
+__host__ __device__ inline long long lmax(long long a, long long b) {
+  return a > b ? a : b;
+}
+
+__host__ __device__ inline DevLayout gw_device_layout(int L, int cap,
+                                                      int sms) {
+  DevLayout o;
+  o.tiles = (cap + kTile - 1) / kTile;
+  o.strips = (cap + kStrip - 1) / kStrip;
+  const long long tiles = (long long)L * o.tiles * o.tiles;
+  const long long rows = ((long long)L * cap + kDevWarps - 1) / kDevWarps;
+  const long long strips = (long long)L * o.strips;
+  const long long most = lmax(tiles, lmax(rows, strips));
+  const long long full = (long long)sms * kDevBlocksPerSm;
+  o.grid = (int)(most < full ? most : full);
+  return o;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// All blocks of the grid meet here (sinkhorn.cu's barrier); `target` counts
+// arrivals so far. Thread 0 arrives with a release and waits with acquires,
+// so the block's reads after the barrier see every write before it.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
+  target += gridDim.x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(bar), "r"(1u)
+                 : "memory");
+    while (ld_acquire(bar) < target) {
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ Lse warp_lse(Lse a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Lse o{__shfl_xor_sync(0xffffffffu, a.m, off),
+          __shfl_xor_sync(0xffffffffu, a.s, off)};
+    a = lse_merge(a, o);
+  }
+  return a;
+}
+
+// Merge a chunk of kChunk terms (x[u] = -inf where absent, the first term
+// present) into a running (max, sum).
+__device__ __forceinline__ Lse lse_chunk(Lse acc, const float* x) {
+  float cm = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) cm = fmaxf(cm, x[u]);
+  const float nm = fmaxf(acc.m, cm);
+  float s = acc.m == -INFINITY ? 0.0f : acc.s * expf(acc.m - nm);
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u)
+    if (x[u] != -INFINITY) s += expf(x[u] - nm);
+  return {nm, s};
+}
+
+struct DevArgs {
+  const float* cx;
+  const float* cy;
+  const float* logp;
+  const float* logq;
+  const float* p;
+  const float* q;
+  float* t;       // (L, cap, cap): the plan, the output
+  float* tprev;   // (L, cap, cap): T at the last check
+  float* u;       // (L, cap, cap): T Cy^T
+  float* mcost;   // (L, cap, cap): M, 1e30 on padded pairs
+  float* kneg;    // (L, cap, cap): -M / eps
+  float* f;       // (L, cap) each
+  float* fs;      // f / eps
+  float* g;
+  float* gs;      // g / eps
+  float* cx2p;
+  float* cy2q;
+  float* d2;      // per row: ||dT||^2 and ||T||^2 of the row
+  float* n2;
+  float* err;     // (L) each
+  float* best;
+  int* stall;
+  int* it;
+  int* act;       // label still running
+  int* any;       // any label running
+  unsigned* bar;
+  int* iters_out;
+  float* err_out;
+  int L, cap;
+  float eps;
+  int max_iterations;
+  float threshold;
+  int inner_sweeps;
+};
+
+// Loads rows r0.. (kTile) and columns k0.. (kTileK) of the row-major
+// (cap, cap) matrix `a` into s[k][r] (zeros past the edge).
+template <bool kInput>
+__device__ __forceinline__ void load_rows(float* s, const float* a, int cap,
+                                          int r0, int k0) {
+  for (int e = threadIdx.x; e < kTile * kTileK; e += kDevThreads) {
+    const int r = e / kTileK, k = e % kTileK;
+    const int gr = r0 + r, gk = k0 + k;
+    float v = 0.0f;
+    if (gr < cap && gk < cap) {
+      const float* src = a + (size_t)gr * cap + gk;
+      v = kInput ? __ldg(src) : __ldcg(src);
+    }
+    s[k * kTileLd + r] = v;
+  }
+}
+
+// Loads rows k0.. (kTileK) and columns c0.. (kTile) of `b` into s[k][c].
+__device__ __forceinline__ void load_cols(float* s, const float* b, int cap,
+                                          int k0, int c0) {
+  for (int e = threadIdx.x; e < kTile * kTileK; e += kDevThreads) {
+    const int k = e / kTile, c = e % kTile;
+    const int gk = k0 + k, gc = c0 + c;
+    s[k * kTileLd + c] =
+        (gk < cap && gc < cap) ? __ldcg(b + (size_t)gk * cap + gc) : 0.0f;
+  }
+}
+
+// One product phase over every active label's tiles. kNN = false: U = T
+// Cy^T; kNN = true: M = constC - 2 Cx U, masked, and K = -M / eps.
+template <bool kNN>
+__device__ void product_phase(const DevArgs& a, const DevLayout& lay,
+                              float* sa, float* sb) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int cap = a.cap;
+  const size_t cc = (size_t)cap * cap;
+  const int per_label = lay.tiles * lay.tiles;
+  for (int w = blockIdx.x; w < a.L * per_label; w += gridDim.x) {
+    const int l = w / per_label;
+    if (!__ldcg(a.act + l)) continue;  // the same in every thread
+    const int i0 = ((w % per_label) / lay.tiles) * kTile;
+    const int j0 = ((w % per_label) % lay.tiles) * kTile;
+    float acc[4][4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
+    for (int k0 = 0; k0 < cap; k0 += kTileK) {
+      __syncthreads();  // the last stage (or tile) has been consumed
+      if (kNN) {
+        load_rows<true>(sa, a.cx + l * cc, cap, i0, k0);
+        load_cols(sb, a.u + l * cc, cap, k0, j0);
+      } else {
+        load_rows<false>(sa, a.t + l * cc, cap, i0, k0);
+        load_rows<true>(sb, a.cy + l * cc, cap, j0, k0);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kTileK; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(sa + k * kTileLd +
+                                                           ty * 4);
+        const float4 bv = *reinterpret_cast<const float4*>(sb + k * kTileLd +
+                                                           tx * 4);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(ar[x], br[y], acc[x][y]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = i0 + ty * 4 + x;
+      if (i >= cap) continue;
+      const size_t row = l * cc + (size_t)i * cap;
+      const float pi = kNN ? __ldg(a.p + (size_t)l * cap + i) : 0.0f;
+      const float ci = kNN ? __ldcg(a.cx2p + (size_t)l * cap + i) : 0.0f;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int j = j0 + tx * 4 + y;
+        if (j >= cap) continue;
+        if (kNN) {
+          const bool pair = pi > 0.0f && __ldg(a.q + (size_t)l * cap + j) > 0.0f;
+          const float v =
+              (ci + __ldcg(a.cy2q + (size_t)l * cap + j)) - 2.0f * acc[x][y];
+          const float mm = pair ? v : kBig;
+          __stcg(a.mcost + row + j, mm);
+          __stcg(a.kneg + row + j, -mm / a.eps);
+        } else {
+          __stcg(a.u + row + j, acc[x][y]);
+        }
+      }
+    }
+  }
+}
+
+// f: f_i = eps (log p_i - lse_j(K_ij + g_j / eps)), a warp per row.
+__device__ void row_phase(const DevArgs& a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cap = a.cap;
+  for (long long w = (long long)blockIdx.x * kDevWarps + warp;
+       w < (long long)a.L * cap; w += (long long)gridDim.x * kDevWarps) {
+    const int l = (int)(w / cap);
+    if (!__ldcg(a.act + l)) continue;
+    const float* kr = a.kneg + (size_t)w * cap;
+    const float* gs = a.gs + (size_t)l * cap;
+    Lse acc{-INFINITY, 0.0f};
+    for (int j0 = lane; j0 < cap; j0 += 32 * kChunk) {
+      float x[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = j0 + 32 * u;
+        x[u] = j < cap ? __ldcg(kr + j) + __ldcg(gs + j) : -INFINITY;
+      }
+      acc = lse_chunk(acc, x);
+    }
+    acc = warp_lse(acc);
+    if (lane == 0) {
+      const float f = a.eps * (__ldg(a.logp + w) - (acc.m + logf(acc.s)));
+      __stcg(a.f + w, f);
+      __stcg(a.fs + w, f / a.eps);
+    }
+  }
+}
+
+// g: g_j = eps (log q_j - lse_i(K_ij + f_i / eps)), a block per (label,
+// strip of kStrip columns): lane = column, warp = every kDevWarps-th row.
+__device__ void col_phase(const DevArgs& a, const DevLayout& lay, float* wm,
+                          float* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cap = a.cap;
+  const size_t cc = (size_t)cap * cap;
+  for (int w = blockIdx.x; w < a.L * lay.strips; w += gridDim.x) {
+    const int l = w / lay.strips;
+    if (!__ldcg(a.act + l)) continue;
+    const int j = (w % lay.strips) * kStrip + lane;
+    const float* kl = a.kneg + l * cc;
+    const float* fs = a.fs + (size_t)l * cap;
+    Lse acc{-INFINITY, 0.0f};
+    if (j < cap) {
+      for (int i0 = warp; i0 < cap; i0 += kDevWarps * kChunk) {
+        float x[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          const int i = i0 + kDevWarps * u;
+          x[u] = i < cap ? __ldcg(kl + (size_t)i * cap + j) + __ldcg(fs + i)
+                         : -INFINITY;
+        }
+        acc = lse_chunk(acc, x);
+      }
+    }
+    __syncthreads();  // the last strip's partials have been merged
+    wm[warp * kStrip + lane] = acc.m;
+    ws[warp * kStrip + lane] = acc.s;
+    __syncthreads();
+    if (warp == 0 && j < cap) {
+      Lse t{-INFINITY, 0.0f};
+      for (int v = 0; v < kDevWarps; ++v)
+        t = lse_merge(t, Lse{wm[v * kStrip + lane], ws[v * kStrip + lane]});
+      const size_t o = (size_t)l * cap + j;
+      const float g = a.eps * (__ldg(a.logq + o) - (t.m + logf(t.s)));
+      __stcg(a.g + o, g);
+      __stcg(a.gs + o, g / a.eps);
+    }
+  }
+}
+
+// T = exp((f + g - M) / eps), 0 on padded pairs, a warp per row; on the
+// last linearisation of a check also the row's ||dT||^2 and ||T||^2, and T
+// into the last check's copy.
+__device__ void plan_phase(const DevArgs& a, bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cap = a.cap;
+  for (long long w = (long long)blockIdx.x * kDevWarps + warp;
+       w < (long long)a.L * cap; w += (long long)gridDim.x * kDevWarps) {
+    const int l = (int)(w / cap);
+    if (!__ldcg(a.act + l)) continue;
+    const float fi = __ldcg(a.f + w);
+    const bool pi = __ldg(a.p + w) > 0.0f;
+    const size_t row = (size_t)w * cap;
+    const float* gl = a.g + (size_t)l * cap;
+    const float* ql = a.q + (size_t)l * cap;
+    float d2 = 0.0f, n2 = 0.0f;
+    for (int j = lane; j < cap; j += 32) {
+      const bool pair = pi && __ldg(ql + j) > 0.0f;
+      const float tn =
+          pair ? expf(((fi + __ldcg(gl + j)) - __ldcg(a.mcost + row + j)) /
+                      a.eps)
+               : 0.0f;
+      __stcg(a.t + row + j, tn);
+      if (last) {
+        const float d = tn - __ldcg(a.tprev + row + j);
+        d2 += d * d;
+        n2 += tn * tn;
+        __stcg(a.tprev + row + j, tn);
+      }
+    }
+    if (last) {
+      d2 = warp_sum(d2);
+      n2 = warp_sum(n2);
+      if (lane == 0) {
+        __stcg(a.d2 + w, d2);
+        __stcg(a.n2 + w, n2);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDevThreads, kDevBlocksPerSm)
+gw_device_kernel(DevArgs a, int sms) {
+  __shared__ __align__(16) float sm[kDevSmemFloats];
+  float* sa = sm;
+  float* sb = sa + kTileK * kTileLd;
+  float* wm = sb + kTileK * kTileLd;
+  float* ws = wm + kDevWarps * kStrip;
+  const DevLayout lay = gw_device_layout(a.L, a.cap, sms);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cap = a.cap;
+  unsigned target = 0;
+
+  // Start: Cx^2 p and Cy^2 q, T = T_prev = p q^T, f = g = 0 (a warp per
+  // row); block 0 the per-label state.
+  for (long long w = (long long)blockIdx.x * kDevWarps + warp;
+       w < (long long)a.L * cap; w += (long long)gridDim.x * kDevWarps) {
+    const int l = (int)(w / cap);
+    const size_t row = (size_t)w * cap;
+    const float* pl = a.p + (size_t)l * cap;
+    const float* ql = a.q + (size_t)l * cap;
+    float sx = 0.0f, sy = 0.0f;
+    for (int k = lane; k < cap; k += 32) {
+      const float x = __ldg(a.cx + row + k), y = __ldg(a.cy + row + k);
+      sx += x * x * __ldg(pl + k);
+      sy += y * y * __ldg(ql + k);
+    }
+    sx = warp_sum(sx);
+    sy = warp_sum(sy);
+    const float pi = __ldg(a.p + w);
+    for (int j = lane; j < cap; j += 32) {
+      const float t0 = pi * __ldg(ql + j);
+      __stcg(a.t + row + j, t0);
+      __stcg(a.tprev + row + j, t0);
+    }
+    if (lane == 0) {
+      __stcg(a.cx2p + w, sx);
+      __stcg(a.cy2q + w, sy);
+      __stcg(a.f + w, 0.0f);
+      __stcg(a.fs + w, 0.0f);
+      __stcg(a.g + w, 0.0f);
+      __stcg(a.gs + w, 0.0f);
+    }
+  }
+  if (blockIdx.x == 0) {
+    for (int l = threadIdx.x; l < a.L; l += kDevThreads) {
+      a.err[l] = INFINITY;
+      a.best[l] = INFINITY;
+      a.stall[l] = 0;
+      a.it[l] = 0;
+      __stcg(a.act + l, a.max_iterations > 0 ? 1 : 0);
+    }
+    if (threadIdx.x == 0) __stcg(a.any, a.max_iterations > 0 ? 1 : 0);
+  }
+  grid_sync(a.bar, target);
+
+  while (__ldcg(a.any)) {
+    for (int u = 0; u < kOuterUnroll; ++u) {
+      product_phase<false>(a, lay, sa, sb);
+      grid_sync(a.bar, target);
+      product_phase<true>(a, lay, sa, sb);
+      grid_sync(a.bar, target);
+      for (int s = 0; s < a.inner_sweeps; ++s) {
+        row_phase(a);
+        grid_sync(a.bar, target);
+        col_phase(a, lay, wm, ws);
+        grid_sync(a.bar, target);
+      }
+      plan_phase(a, u == kOuterUnroll - 1);
+      grid_sync(a.bar, target);
+    }
+    // The check, in block 0: a warp per label sums its rows' partials in a
+    // fixed order; every block reads the flags after the barrier.
+    if (blockIdx.x == 0) {
+      for (int l = warp; l < a.L; l += kDevWarps) {
+        if (!__ldcg(a.act + l)) continue;
+        float d2 = 0.0f, n2 = 0.0f;
+        for (int i = lane; i < cap; i += 32) {
+          d2 += __ldcg(a.d2 + (size_t)l * cap + i);
+          n2 += __ldcg(a.n2 + (size_t)l * cap + i);
+        }
+        d2 = warp_sum(d2);
+        n2 = warp_sum(n2);
+        if (lane == 0) {
+          const float e = sqrtf(d2) / fmaxf(sqrtf(n2), 1e-30f);
+          const float best = a.best[l];
+          const bool improved = e < 0.999f * best;
+          const int stall = improved ? 0 : a.stall[l] + 1;
+          const int it = a.it[l] + kOuterUnroll;
+          a.err[l] = e;
+          a.best[l] = fminf(best, e);
+          a.stall[l] = stall;
+          a.it[l] = it;
+          __stcg(a.act + l, (it < a.max_iterations && e > a.threshold &&
+                             stall < kStallPatience) ? 1 : 0);
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int any = 0;
+        for (int l = 0; l < a.L; ++l) any |= __ldcg(a.act + l);
+        __stcg(a.any, any);
+      }
+    }
+    grid_sync(a.bar, target);
+  }
+  if (blockIdx.x == 0)
+    for (int l = threadIdx.x; l < a.L; l += kDevThreads) {
+      a.iters_out[l] = a.it[l];
+      a.err_out[l] = a.err[l];
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -580,6 +1074,75 @@ int otf_gw_solve(const float* cx, const float* cy, const float* log_p,
   OTF_GW_LAUNCH(4, 1) OTF_GW_LAUNCH(4, 2) OTF_GW_LAUNCH(4, 4)
 #undef OTF_GW_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// --- the device route ---
+
+int otf_gw_device_grid(int L, int cap, int sms) {
+  return gw_device_layout(L, cap, sms).grid;
+}
+
+// Static shared memory of one device-route block, in bytes.
+int otf_gw_device_smem_bytes() { return kDevSmemFloats * (int)sizeof(float); }
+
+// L labels of cap x cap (any cap >= 1) in one cooperative launch on the
+// caller's stream. `scratch` holds 4 L cap^2 + 8 L cap + 2 L floats,
+// `istate` 3 L + 2 ints zeroed by the caller (its last int is the grid
+// barrier); `sms` is the device's SM count (the grid follows from it).
+int otf_gw_device_solve(const float* cx, const float* cy, const float* log_p,
+                        const float* log_q, const float* p, const float* q,
+                        float* t_out, int* iters_out, float* err_out,
+                        float* scratch, int* istate, int L, int cap, int sms,
+                        float eps, int max_iterations, float threshold,
+                        int inner_sweeps, void* stream) {
+  if (cap < 1 || L < 1 || sms < 1 || inner_sweeps < 0)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gw_device_kernel, kDevThreads, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  if (per_sm < kDevBlocksPerSm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const size_t cc = (size_t)L * cap * cap, v = (size_t)L * cap;
+  DevArgs a;
+  a.cx = cx;
+  a.cy = cy;
+  a.logp = log_p;
+  a.logq = log_q;
+  a.p = p;
+  a.q = q;
+  a.t = t_out;
+  a.tprev = scratch;
+  a.u = a.tprev + cc;
+  a.mcost = a.u + cc;
+  a.kneg = a.mcost + cc;
+  a.f = a.kneg + cc;
+  a.fs = a.f + v;
+  a.g = a.fs + v;
+  a.gs = a.g + v;
+  a.cx2p = a.gs + v;
+  a.cy2q = a.cx2p + v;
+  a.d2 = a.cy2q + v;
+  a.n2 = a.d2 + v;
+  a.err = a.n2 + v;
+  a.best = a.err + L;
+  a.stall = istate;
+  a.it = a.stall + L;
+  a.act = a.it + L;
+  a.any = a.act + L;
+  a.bar = reinterpret_cast<unsigned*>(a.any + 1);
+  a.iters_out = iters_out;
+  a.err_out = err_out;
+  a.L = L;
+  a.cap = cap;
+  a.eps = eps;
+  a.max_iterations = max_iterations;
+  a.threshold = threshold;
+  a.inner_sweeps = inner_sweeps;
+  const int grid = gw_device_layout(L, cap, sms).grid;
+  void* args[] = {&a, &sms};
+  return (int)cudaLaunchCooperativeKernel((const void*)gw_device_kernel,
+                                          dim3(grid), dim3(kDevThreads), args,
+                                          0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -4,8 +4,9 @@ Scores OT coupling methods on matching quality (FOSCTTM, Z-class diagonal
 fractions) and downstream cross-modal prediction (coupling-weighted OLS,
 an MLP on barycentric targets) across inner/outer cross-validation,
 leave-one-treatment-out, whole-dataset and FOT feature-matching runs. The
-OT solves run on the device (kernels K1 and K2 on CUDA); the VAE matching
-family is not ported yet.
+OT solves run on the device (kernels K1 and K2 on CUDA), and so do the VAE
+matching family (``eval.vae``) and the per-modality VAEs of the VAE-then-OT
+leave-one-out (``eval.preprocess``).
 """
 
 from otfusion_tpu_torch.eval.matching import (
@@ -27,12 +28,27 @@ from otfusion_tpu_torch.eval.predictors import (
 from otfusion_tpu_torch.eval.harness import (
     OT_METHOD_HYPERPARAMS,
     OT_METHOD_MAP,
+    VAE_ALL_KS,
+    VAE_INNER_KS,
     run_all,
     run_feature_matching,
     run_grid,
     run_inner_cv,
     run_loo,
+    run_loo_latent,
     run_outer_cv,
+)
+from otfusion_tpu_torch.eval.preprocess import (
+    SCVI_LATENT_KEY,
+    ModalityVAE,
+    train_modality_vae,
+)
+from otfusion_tpu_torch.eval.vae import (
+    VAEMatchModel,
+    infer_from_Xs,
+    infer_from_Ys,
+    predict_from_model,
+    train_vae_model,
 )
 
 __all__ = [
@@ -51,10 +67,21 @@ __all__ = [
     "weighted_ols_normed",
     "OT_METHOD_HYPERPARAMS",
     "OT_METHOD_MAP",
+    "VAE_ALL_KS",
+    "VAE_INNER_KS",
     "run_all",
     "run_feature_matching",
     "run_grid",
     "run_inner_cv",
     "run_loo",
+    "run_loo_latent",
     "run_outer_cv",
+    "SCVI_LATENT_KEY",
+    "ModalityVAE",
+    "train_modality_vae",
+    "VAEMatchModel",
+    "infer_from_Xs",
+    "infer_from_Ys",
+    "predict_from_model",
+    "train_vae_model",
 ]

@@ -3,23 +3,26 @@
 
 The reference's 5-fold inner hyperparameter loop, outer test evaluation,
 leave-one-out, whole-dataset matching run and FOT feature-matching stage,
-plus ``run_grid``, the in-process replacement of its LSF submitters. Every
-run takes ``device=`` (default the card) and passes it to the OT
-solvers (``ops.api``: kernels K1 and K2 on CUDA), to ``get_coupling_fot``
-and to the MLP predictor; matching metrics and the OLS predictors are
-numpy on the host.
+plus ``run_grid``, the in-process replacement of its LSF submitters, and
+the VAE-then-OT leave-one-out ``run_loo_latent``. Every run takes
+``device=`` (default the card) and passes it to the OT solvers
+(``ops.api``: kernels K1 and K2 on CUDA), to the VAE trainers
+(``eval.vae``, ``eval.preprocess``), to ``get_coupling_fot`` and to the MLP
+predictor; matching metrics and the OLS predictors are numpy on the host.
 
 Data: a dict with ``Xs_dict``/``Xt_dict`` ({treatment label: (n_l, d)
 features} per modality) and ``Zs_dict``/``Zt_dict`` (per-sample side
 information, possibly nested one level: ``{"dosage": {label: (n_l,)}}``).
 
-The VAE matching family (``VAE``, ``VAE_label``) and the VAE-then-OT
-leave-one-out (``run_loo_latent``) are not ported: they stay in
-``OT_METHOD_MAP`` and raise ``NotImplementedError`` when called.
+The VAE matching family (``VAE``, ``VAE_label``: ``eval.vae``) returns a
+trained model where the OT methods return a coupling; each run scores it
+on its shared latents (FOSCTTM without barycentric projection, kNN
+couplings for the diagonal fractions) and predicts through it.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from itertools import product
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +30,13 @@ import numpy as np
 import torch
 
 from otfusion_tpu_torch.eval.matching import get_FOSCTTM, get_diag_fracs
+from otfusion_tpu_torch.eval.preprocess import (
+    SCVI_LATENT_KEY,
+    decode,
+    encode,
+    encode_dict,
+    train_modality_vae,
+)
 from otfusion_tpu_torch.eval.prediction import (
     get_evals,
     get_evals_preds,
@@ -41,6 +51,13 @@ from otfusion_tpu_torch.eval.predictors import (
     weight_conc_normed,
     weighted_ols_normed,
 )
+from otfusion_tpu_torch.eval.vae import (
+    infer_from_Xs,
+    infer_from_Ys,
+    predict_from_model,
+    train_vae_model,
+)
+from otfusion_tpu_torch.metrics.ot_quality import knn_couplings_per_label
 from otfusion_tpu_torch.ops.api import (
     get_coupling_cot_sinkhorn,
     get_coupling_cotl_sinkhorn,
@@ -55,15 +72,6 @@ from otfusion_tpu_torch.ops.api import (
 from otfusion_tpu_torch.utils.device import resolve_device
 
 Device = str | torch.device
-_VAE_ITEM = ("the VAE family of the eval harness: eval/vae.py, "
-             "eval/preprocess.py, run_loo_latent, --latent-vae")
-
-
-def _vae_unported(*args, **kwargs):
-    raise NotImplementedError(
-        "the VAE matching methods are not ported to otfusion_tpu_torch yet "
-        f"(ROADMAP.md, open item: {_VAE_ITEM})")
-
 
 # Reference registry (cv_inner_loop.py:59-71); both EGWL names resolve to
 # the label-masked global GW.
@@ -77,8 +85,8 @@ OT_METHOD_MAP: Dict[str, Callable] = {
     "EGW_ott": get_coupling_egw_ott,
     "EGW_all_ott": get_coupling_egw_all_ott,
     "EGWL_ott": get_coupling_egw_labels_ott,
-    "VAE_label": _vae_unported,
-    "VAE": _vae_unported,
+    "VAE_label": train_vae_model,
+    "VAE": partial(train_vae_model, use_label=False),
 }
 
 # Hyperparameter grid (cv_inner_loop.py:102-129): epsilons for the OT
@@ -92,9 +100,41 @@ for _m in ("VAE", "VAE_label"):
         product([1, 5, 10, 50, 100], [128], [1e-4])
     )
 
+# k grids for the VAE kNN-coupling evaluation (cv_inner_loop.py:288 /
+# all.py:122).
+VAE_INNER_KS = [5, 10, 25, 50]
+VAE_ALL_KS = [1, 5, 10, 50, 100]
+
 
 def _is_vae(method: str) -> bool:
     return "VAE" in method
+
+
+def _widths(x_dict, y_dict):
+    return (next(iter(x_dict.values())).shape[1],
+            next(iter(y_dict.values())).shape[1])
+
+
+def _vae_matching(model, x_dict, y_dict, ks, z_dict, scored=None):
+    """A VAE model's matching scores on ``x_dict``/``y_dict``: the shared
+    latents' FOSCTTM (no barycentric projection) and, with side
+    information, the diagonal fractions of kNN couplings in latent space
+    per k of ``ks`` up to the smallest label (or that size alone), scored
+    against ``scored`` (the (X, Y) dicts, default these). Returns (latent
+    X, latent Y, mean FOSCTTM, {k: (dfrac, rel)})."""
+    dim_x, dim_y = _widths(x_dict, y_dict)
+    lat_y = infer_from_Ys(y_dict, model, dim_x)
+    lat_x = infer_from_Xs(x_dict, model, dim_y)
+    _, mean_foscttm = get_FOSCTTM(None, lat_x, lat_y, use_agg="mean",
+                                  use_barycenter=False)
+    fracs = {}
+    if z_dict:
+        n_min = min(v.shape[0] for v in lat_y.values())
+        ks = [k for k in ks if k <= n_min] or [n_min]
+        sx, sy = scored or (x_dict, y_dict)
+        for k, t_k in knn_couplings_per_label(lat_x, lat_y, ks).items():
+            fracs[k] = get_diag_fracs(t_k, sx, sy, z_dict, z_dict)
+    return lat_x, lat_y, mean_foscttm, fracs
 
 
 # Methods returning one dense coupling over all samples
@@ -217,6 +257,21 @@ def run_inner_cv(
         ts, log = solver((tr_x, tr_y), eps, device=device)
         t_store[eps][val_labels] = ts
         log_store[eps][val_labels] = log
+        if _is_vae(method):
+            # cv_inner_loop.py:287-302, 316-317: score the shared latents,
+            # predict each val label through the model.
+            _, _, mean_foscttm, fracs = _vae_matching(
+                ts, tr_x, tr_y, VAE_INNER_KS, tr_z)
+            matching[eps].append(mean_foscttm)
+            if tr_z:
+                dfracs[eps].append({k: v[1] for k, v in fracs.items()})
+            dim_y = _widths(tr_x, tr_y)[1]
+            for vl in val_labels:
+                pred = predict_from_model(np.asarray(tv_x[vl]), ts, dim_y)
+                pred_evals[eps].append(get_evals(
+                    np.asarray(tv_y[vl]), pred,
+                    prediction_id=(eps, val_labels)))
+            continue
         if _coupling_failed(ts):
             # underflow sentinel (cv_inner_loop.py:252-285)
             matching[eps].append(100.0)
@@ -274,7 +329,9 @@ def run_outer_cv(
     coupling at ``pred_eps`` over the full features (``pred_data`` if
     given, else ``data``) and score it on the held-out test labels.
     ``baseline`` ("perfect", "random", "by_conc") replaces the OT coupling
-    with that control."""
+    with that control. A VAE method fits on the full features when
+    ``pred_data`` is given, is scored on its shared latents and predicts
+    through its own decoder (no MLP)."""
     device = resolve_device(device)
     x_dict, y_dict, zs_dict, _ = _unpack(data, z_key)
     labels = list(x_dict.keys())
@@ -307,18 +364,37 @@ def run_outer_cv(
         ts_pred = ts_match
     else:
         solver = OT_METHOD_MAP[method]
-        ts_match, log_match = solver((tr_x, tr_y), match_eps, device=device)
+        # VAE trains on the FULL features (cv_outer_loop.py:179-186); OT
+        # methods couple the (reduced) matching features.
+        if _is_vae(method) and pred_data is not None:
+            pfx, pfy, _, _ = _unpack(pred_data, z_key)
+            fit_x = _pop_keys(pfx, test_labels)
+            fit_y = _pop_keys(pfy, test_labels)
+        else:
+            fit_x, fit_y = tr_x, tr_y
+        ts_match, log_match = solver((fit_x, fit_y), match_eps,
+                                     device=device)
         if match_eps != pred_eps:
-            ts_pred, log_pred_match = solver((tr_x, tr_y), pred_eps,
+            ts_pred, log_pred_match = solver((fit_x, fit_y), pred_eps,
                                              device=device)
         else:
             ts_pred = ts_match
 
-    ts_match = _normalize_mass(ts_match)
-    _, mean_foscttm = get_FOSCTTM(ts_match, tr_x, tr_y, use_agg="mean")
-    dfrac, rel_dfrac = (float("nan"), float("nan"))
-    if tr_z:
-        dfrac, rel_dfrac = get_diag_fracs(ts_match, tr_x, tr_y, tr_z, tr_z)
+    vae = baseline is None and _is_vae(method)
+    if vae:
+        # cv_outer_loop.py:207-226: the shared latents of whatever features
+        # the VAE was fit on
+        _, _, mean_foscttm, fracs = _vae_matching(
+            ts_match, fit_x, fit_y, VAE_ALL_KS, tr_z, scored=(tr_x, tr_y))
+        dfrac = {k: v[0] for k, v in fracs.items()}
+        rel_dfrac = {k: v[1] for k, v in fracs.items()}
+    else:
+        ts_match = _normalize_mass(ts_match)
+        _, mean_foscttm = get_FOSCTTM(ts_match, tr_x, tr_y, use_agg="mean")
+        dfrac, rel_dfrac = (float("nan"), float("nan"))
+        if tr_z:
+            dfrac, rel_dfrac = get_diag_fracs(ts_match, tr_x, tr_y, tr_z,
+                                              tr_z)
 
     # Prediction on full features (cv_outer_loop.py:258-284).
     fx_dict, fy_dict, _, _ = _unpack(pred_data or data, z_key)
@@ -326,8 +402,13 @@ def run_outer_cv(
     ftr_y = _pop_keys(fy_dict, test_labels)
     test_x = np.concatenate([np.asarray(fx_dict[l]) for l in test_labels])
     test_y = np.concatenate([np.asarray(fy_dict[l]) for l in test_labels])
-    model, log_mlp = train_mlp((ftr_x, ftr_y), ts_pred, device=device)
-    y_pred = model(test_x)
+    if vae:
+        y_pred = predict_from_model(test_x, ts_pred, _widths(fx_dict,
+                                                             fy_dict)[1])
+        log_mlp = {"final_loss": float("nan")}
+    else:
+        model, log_mlp = train_mlp((ftr_x, ftr_y), ts_pred, device=device)
+        y_pred = model(test_x)
     pred_eval = get_evals(test_y, y_pred, prediction_id="eval")
 
     return {
@@ -356,8 +437,9 @@ def run_loo(
 ) -> Tuple[List[Dict], Dict]:
     """Leave-one-treatment-out: for every held-out label, couple the rest,
     fit the coupling-weighted OLS and the perfect/random/by_conc
-    baselines, and score their predictions of the held-out pair. Returns
-    (per-label metric frames, log)."""
+    baselines, and score their predictions of the held-out pair (a VAE
+    method predicts through its model instead, and logs its latents and
+    kNN couplings). Returns (per-label metric frames, log)."""
     device = resolve_device(device)
     say = progress or (lambda s: None)
     x_dict, y_dict, zs_dict, _ = _unpack(data, z_key)
@@ -372,6 +454,18 @@ def run_loo(
         ts, solver_log = solver((tr_x, tr_y), eps, device=device)
         log["ot_couplings"][test_label] = ts
         log["logs"][test_label] = solver_log
+        if _is_vae(method):
+            # loo.py:114-185 (run_models_vae)
+            _log_vae_latents(log, test_label, ts, tr_x, tr_y)
+            pred_y = predict_from_model(np.asarray(x_dict[test_label]), ts,
+                                        _widths(tr_x, tr_y)[1])
+            log["preds"][test_label] = pred_y
+            rows = get_evals_preds(np.asarray(y_dict[test_label]), [pred_y],
+                                   ["VAE"])
+            for row in rows:
+                row["loo_test_idx"] = test_label
+            eval_rows.extend(rows)
+            continue
         params = [weighted_ols_normed(tr_x, tr_y, ts)]
         for baseline in BASELINE_PRED_METHODS:
             params.append(baseline(tr_x, tr_y, tr_z))
@@ -387,11 +481,82 @@ def run_loo(
     return eval_rows, log
 
 
-def run_loo_latent(*args, **kwargs):
-    """The VAE-then-OT leave-one-out: not ported yet (raises)."""
-    raise NotImplementedError(
-        "run_loo_latent (--latent-vae) is not ported to otfusion_tpu_torch "
-        f"yet (ROADMAP.md, open item: {_VAE_ITEM})")
+def _log_vae_latents(log, test_label, model, tr_x, tr_y):
+    """Log a VAE fold's latents and its per-k kNN couplings (``pred_T_k``)
+    under ``test_label``."""
+    dim_x, dim_y = _widths(tr_x, tr_y)
+    lat_y = infer_from_Ys(tr_y, model, dim_x)
+    lat_x = infer_from_Xs(tr_x, model, dim_y)
+    log.setdefault("latent_X", {})[test_label] = lat_x
+    log.setdefault("latent_Y", {})[test_label] = lat_y
+    n_min = min(v.shape[0] for v in lat_y.values())
+    ks = [k for k in VAE_ALL_KS if k <= n_min] or [n_min]
+    for k, t_k in knn_couplings_per_label(lat_x, lat_y, ks).items():
+        log.setdefault(f"pred_T_k{k}", {})[test_label] = t_k
+
+
+def run_loo_latent(
+    data: Dict,
+    method: str,
+    eps: float,
+    latent_dim: int = 10,
+    z_key: str = "dosage",
+    vae_steps: int = 500,
+    seed: int = 0,
+    progress: Optional[Callable[[str], None]] = None,
+    device: Device = "cuda",
+) -> Tuple[List[Dict], Dict]:
+    """VAE-then-OT leave-one-out (the reference's
+    ``run_models_vae_then_ot``, loo.py:188-283): per held-out label, train
+    an independent VAE per modality on the other labels (seeds ``seed`` and
+    ``seed + 1``), solve the OT method between their latent clouds, fit the
+    coupling-weighted OLS in latent space and predict the held-out label by
+    encode, latent map, decode. The raw-space label-level baselines ride
+    along, as in :func:`run_loo`."""
+    device = resolve_device(device)
+    say = progress or (lambda s: None)
+    x_dict, y_dict, zs_dict, _ = _unpack(data, z_key)
+    if _is_vae(method):
+        raise ValueError(
+            "run_loo_latent couples VAE latents with an OT method; the "
+            "shared-latent VAE matching family belongs in run_loo")
+    solver = OT_METHOD_MAP[method]
+    log: Dict = {"ot_couplings": {}, "params": {}, "preds": {},
+                 "logs": {}, "vae_logs": {}, SCVI_LATENT_KEY: {}}
+    eval_rows: List[Dict] = []
+    for test_label in list(x_dict.keys()):
+        say(f"loo-latent hold-out {test_label}")
+        tr_x = _pop_keys(x_dict, [test_label])
+        tr_y = _pop_keys(y_dict, [test_label])
+        tr_z = _pop_keys(zs_dict, [test_label]) if zs_dict else None
+        vae_x, log_x = train_modality_vae(
+            tr_x, latent_dim, steps=vae_steps, seed=seed, device=device)
+        vae_y, log_y = train_modality_vae(
+            tr_y, latent_dim, steps=vae_steps, seed=seed + 1, device=device)
+        lat_x = encode_dict(vae_x, tr_x)
+        lat_y = encode_dict(vae_y, tr_y)
+        log["vae_logs"][test_label] = {"source": log_x, "target": log_y}
+        log[SCVI_LATENT_KEY][test_label] = (lat_x, lat_y)
+        ts, solver_log = solver((lat_x, lat_y), eps, device=device)
+        log["ot_couplings"][test_label] = ts
+        log["logs"][test_label] = solver_log
+        lat_param = weighted_ols_normed(lat_x, lat_y, ts)
+        log["params"][test_label] = lat_param
+        z_test = encode(vae_x, np.asarray(x_dict[test_label]))
+        pred_y = decode(vae_y, predict(z_test, lat_param))
+        base_params = [b(tr_x, tr_y, tr_z) for b in BASELINE_PRED_METHODS]
+        preds = [pred_y] + [
+            predict(np.asarray(x_dict[test_label]), p) for p in base_params
+        ]
+        log["preds"][test_label] = preds
+        rows = get_evals_preds(
+            np.asarray(y_dict[test_label]), preds,
+            ["ot_latent"] + BASELINE_PRED_LABELS,
+        )
+        for row in rows:
+            row["loo_test_idx"] = test_label
+        eval_rows.extend(rows)
+    return eval_rows, log
 
 
 def run_all(
@@ -403,6 +568,20 @@ def run_all(
     device = resolve_device(device)
     x_dict, y_dict, zs_dict, _ = _unpack(data, z_key)
     ts, log = OT_METHOD_MAP[method]((x_dict, y_dict), eps, device=device)
+    if _is_vae(method):
+        # all.py:110-129: latent FOSCTTM, per-k kNN-coupling diag fracs
+        _, _, mean_foscttm, fracs = _vae_matching(
+            ts, x_dict, y_dict, VAE_ALL_KS, zs_dict)
+        return {
+            "eps": eps,
+            "matching_evals": {
+                "mean_foscttm": mean_foscttm,
+                "dfracs": {k: v[0] for k, v in fracs.items()},
+                "rel_dfracs": {k: v[1] for k, v in fracs.items()},
+            },
+            "T": ts,
+            "log": log,
+        }
     ts = _normalize_mass(ts)
     _, mean_foscttm = get_FOSCTTM(ts, x_dict, y_dict, use_agg="mean")
     dfrac = rel_dfrac = float("nan")
@@ -432,11 +611,23 @@ def run_feature_matching(
 ) -> Dict:
     """Feature-level FOT given sample couplings: without ``ts``, build the
     baseline coupling ``method`` names ("perfect", "random", "by_conc") or
-    solve the OT method at ``best_eps`` (else ``eps``); then FOT at ``eps``
-    gives the feature coupling Tv. ``best_k`` is the VAE methods' kNN
-    size (kept for the signature; they are not ported)."""
+    solve the OT method at ``best_eps`` (else ``eps``); a VAE method
+    trains at ``best_eps`` (else its grid's first point) and gives the kNN
+    couplings of its latents at ``best_k``; then FOT at ``eps`` gives the
+    feature coupling Tv."""
     device = resolve_device(device)
     x_dict, y_dict, zs_dict, _ = _unpack(data, z_key)
+    if ts is None and _is_vae(method):
+        # feature_matching.py:75-81
+        model, _ = OT_METHOD_MAP[method](
+            (x_dict, y_dict),
+            best_eps if best_eps is not None
+            else OT_METHOD_HYPERPARAMS[method][0], device=device)
+        dim_x, dim_y = _widths(x_dict, y_dict)
+        lat_y = infer_from_Ys(y_dict, model, dim_x)
+        lat_x = infer_from_Xs(x_dict, model, dim_y)
+        k = min(best_k, min(v.shape[0] for v in lat_y.values()))
+        ts = knn_couplings_per_label(lat_x, lat_y, [k])[k]
     if ts is None:
         if method == "random":
             ts = {
@@ -509,6 +700,10 @@ def run_grid(
                     "matching_evals"]["rel_dfracs"]
                 for e in epsilons
             }
+            # VAE rel_dfracs arrive as per-k dicts: the best k
+            # (feature_matching.py:126-132)
+            rel = {e: (max(v.values()) if isinstance(v, dict) and v else v)
+                   for e, v in rel.items()}
             best_eps = max(rel, key=lambda e: np.nan_to_num(rel[e], nan=-10))
         for eps in epsilons:
             say(f"feature-matching {method} eps={eps}")
@@ -527,6 +722,8 @@ __all__ = [
     "BASELINE_PRED_METHODS",
     "OT_METHOD_HYPERPARAMS",
     "OT_METHOD_MAP",
+    "VAE_ALL_KS",
+    "VAE_INNER_KS",
     "run_all",
     "run_feature_matching",
     "run_grid",

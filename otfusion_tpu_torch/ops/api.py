@@ -8,7 +8,7 @@ card; ``"cuda"`` without a GPU raises). Which solver runs where:
   * ``egw_ott`` / ``egw_pgd``: per-label GW, ``egw_per_label`` (kernel K1
     on CUDA, labels padded to one cap for both sides);
   * ``egw_all_ott`` / ``egw_all``: global GW, ``entropic_gw`` (K1 on one
-    "label"; K1 holds at most 128 samples a label and raises above);
+    "label"; above 128 rows on K1's device route);
   * ``egw_labels_ott``: label-masked global GW, ``entropic_gw_labels``
     (PyTorch ops on the device, as JAX's is XLA ops);
   * ``eot_ott`` / ``leot_ott``: one ``sinkhorn`` (K2), the latter under the

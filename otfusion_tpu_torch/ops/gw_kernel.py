@@ -15,10 +15,21 @@ label (``ops.gromov`` builds them), the warm-started linearisation loop
 loop and freezes each label once its own condition fails — the semantics
 of the JAX package's ``vmap`` over a ``while_loop`` — so ``n_iters`` match
 label by label. ``gw_solve`` takes it for CPU tensors and launches
-``csrc/gw.cu`` for CUDA tensors: one thread-block cluster per label runs
-the whole loop in shared memory. ``gw_layout`` is the launch's pure-Python
-layout (rows per block, shared bytes per block); the cluster size per cap
-is a constant of ``gw.cu``, read from the library.
+``csrc/gw.cu`` for CUDA tensors, on one of two routes (``gw_route``):
+
+  * the cluster route (cap <= ``MAX_CAP``): one thread-block cluster per
+    label runs the whole loop in shared memory. ``gw_layout`` is its
+    pure-Python layout (rows per block, shared bytes per block); the
+    cluster size per cap is a constant of ``gw.cu``, read from the library.
+    ``COUNTER`` counts its launches.
+  * the device route (cap > ``MAX_CAP``): one persistent cooperative launch
+    over all labels, the labels' matrices in device memory, the two cap^3
+    products tiled in shared memory in the kernel's body.
+    ``gw_device_layout`` is its layout (product tiles, column strips, grid,
+    shared bytes). ``DEVICE_COUNTER`` counts its launches.
+
+Both routes compute what ``gw_solve_plain`` computes, with one launch per
+solve; ``n_iters`` and ``err`` stay on the device, unread.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from otfusion_tpu_torch.utils.cuda_build import (
 )
 
 COUNTER = LaunchCounter("gw")
+DEVICE_COUNTER = LaunchCounter("gw_device")
 _STALL_PATIENCE = 25
 _OUTER_UNROLL = 8
 _BIG = 1e30
@@ -44,6 +56,14 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _WARPS = 16           # csrc/gw.cu: kThreads / 32
 _MAX_ROWS_PER_WARP = 4
+# csrc/gw.cu, the device route: kDevWarps, kDevBlocksPerSm, kTile, kTileK,
+# kTileLd, kStrip
+DEV_WARPS = 8
+DEV_BLOCKS_PER_SM = 2
+DEV_TILE = 64
+_DEV_TILE_K = 16
+_DEV_TILE_LD = DEV_TILE + 4
+DEV_STRIP = 32
 
 
 class GWLayout(NamedTuple):
@@ -80,6 +100,50 @@ def gw_layout(cap: int, cluster: int) -> GWLayout:
         raise ValueError(f"gw_solve: cap {cap} does not fit {cluster} "
                          f"block(s) per label")
     return GWLayout(cluster, rows, 4 * floats)
+
+
+class GWDeviceLayout(NamedTuple):
+    """How K1's device route cuts L labels of ``cap``: ``tiles`` x ``tiles``
+    product tiles of ``DEV_TILE`` per label, ``strips`` column strips of
+    ``DEV_STRIP`` per label (the column pass), ``grid`` co-resident blocks
+    (at most ``DEV_BLOCKS_PER_SM`` per SM) and ``smem_bytes`` of static
+    shared memory per block."""
+
+    tiles: int
+    strips: int
+    grid: int
+    smem_bytes: int
+
+
+def gw_device_layout(L: int, cap: int, sm_count: int) -> GWDeviceLayout:
+    """Layout of a K1 device-route launch; the same sizes as
+    ``csrc/gw.cu:gw_device_layout``. The grid is the largest count of work
+    items of one phase (product tiles, rows a warp each, column strips),
+    capped at ``DEV_BLOCKS_PER_SM`` blocks per SM."""
+    if L < 1 or cap < 1 or sm_count < 1:
+        raise ValueError(f"gw_device_layout: bad problem ({L} labels, cap "
+                         f"{cap}) or SM count {sm_count}")
+    tiles = -(-cap // DEV_TILE)
+    strips = -(-cap // DEV_STRIP)
+    most = max(L * tiles * tiles, -(-L * cap // DEV_WARPS), L * strips)
+    grid = min(sm_count * DEV_BLOCKS_PER_SM, most)
+    smem = 4 * (2 * _DEV_TILE_K * _DEV_TILE_LD + 2 * DEV_WARPS * DEV_STRIP)
+    return GWDeviceLayout(tiles, strips, grid, smem)
+
+
+def gw_device_bytes(L: int, cap: int) -> int:
+    """Device memory the device route allocates for a solve: the plan, four
+    (L, cap, cap) work matrices (the last check's T, T Cy^T, M, -M/eps),
+    eight (L, cap) vectors, the per-label state and the results."""
+    floats = 5 * L * cap * cap + 8 * L * cap + 2 * L
+    ints = 3 * L + 2
+    return 4 * (floats + ints) + 8 * L
+
+
+def gw_route(cap: int) -> str:
+    """K1's route for a cap: ``"cluster"`` up to ``MAX_CAP``, else
+    ``"device"``."""
+    return "cluster" if cap <= MAX_CAP else "device"
 
 
 def const_c(cx, cy, p, q):
@@ -145,7 +209,9 @@ def gw_solve(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
              inner_sweeps: int = 10):
     """Solve L entropic-GW problems (arguments and results as
     ``gw_solve_plain``; both caps equal). CPU tensors take the plain
-    solver; CUDA tensors launch K1."""
+    solver; CUDA tensors launch K1 once, on the cluster route up to
+    ``MAX_CAP`` and on the device route above it. The device route refuses
+    only a problem whose buffers exceed the card's memory."""
     tensors = (cx, cy, log_p, log_q, p, q)
     if all(t.device.type == "cpu" for t in tensors):
         return gw_solve_plain(cx, cy, log_p, log_q, p, q, epsilon=epsilon,
@@ -160,6 +226,9 @@ def gw_solve(cx, cy, log_p, log_q, p, q, *, epsilon: float = 5e-3,
             raise ValueError(f"gw_solve: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
     lib = load_library("gw")
+    if gw_route(cap) == "device":
+        return _launch_device(lib, cx, cy, log_p, log_q, p, q, epsilon,
+                              max_iterations, threshold, inner_sweeps)
     return _launch(lib, cx, cy, log_p, log_q, p, q,
                    lib.otf_gw_cluster_for_cap(cap), epsilon, max_iterations,
                    threshold, inner_sweeps)
@@ -177,5 +246,31 @@ def _launch(lib, cx, cy, log_p, log_q, p, q, cluster, epsilon,
     err = torch.empty((L,), device=device, dtype=torch.float32)
     launch(lib, "otf_gw_solve", COUNTER, cx, cy, log_p, log_q, p, q, t_out,
            iters, err, L, cap, cluster, float(epsilon), int(max_iterations),
+           float(threshold), int(inner_sweeps))
+    return t_out, iters, err
+
+
+def _launch_device(lib, cx, cy, log_p, log_q, p, q, epsilon, max_iterations,
+                   threshold, inner_sweeps):
+    """One launch of K1's device route (any cap; ``gw_solve`` takes it above
+    ``MAX_CAP``, a test may take it below)."""
+    L, cap = cx.shape[0], cx.shape[1]
+    device = cx.device
+    props = torch.cuda.get_device_properties(device)
+    need = gw_device_bytes(L, cap)
+    if need > props.total_memory:
+        raise ValueError(
+            f"gw_solve: {L} labels of cap {cap} need {need} bytes of device "
+            f"memory for the device route; the card has {props.total_memory}")
+    gw_device_layout(L, cap, props.multi_processor_count)
+    t_out = torch.empty((L, cap, cap), device=device, dtype=torch.float32)
+    iters = torch.empty((L,), device=device, dtype=torch.int32)
+    err = torch.empty((L,), device=device, dtype=torch.float32)
+    scratch = torch.empty(4 * L * cap * cap + 8 * L * cap + 2 * L,
+                          device=device, dtype=torch.float32)
+    istate = torch.zeros(3 * L + 2, device=device, dtype=torch.int32)
+    launch(lib, "otf_gw_device_solve", DEVICE_COUNTER, cx, cy, log_p, log_q,
+           p, q, t_out, iters, err, scratch, istate, L, cap,
+           props.multi_processor_count, float(epsilon), int(max_iterations),
            float(threshold), int(inner_sweeps))
     return t_out, iters, err

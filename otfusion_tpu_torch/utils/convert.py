@@ -6,7 +6,8 @@ a ``state_dict`` of the port's ``MultimodalOTFusion`` (any pair of
 backbones), ``ResNet3DClassifier``, ``LegacyMultiModalFusion``
 (``legacy_state_dict_from_jax``), of one zoo backbone
 (``backbone_state_dict_from_jax``: ResNet3D, MedicalNet, Res2Net, Swin,
-UNETR), or of the eval harness's MLP (``mlp_state_dict_from_jax``).
+UNETR), of the eval harness's MLP (``mlp_state_dict_from_jax``), or of
+its VAEs (``modality_vae_state_from_jax``, ``vae_match_state_from_jax``).
 Layouts:
 
   Conv kernel    (kD, kH, kW, I, O)        -> (O, I, kD, kH, kW) (2D alike)
@@ -384,4 +385,39 @@ def mlp_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for i in range(3):
         _dense(out, f"dense{i}", params[f"Dense_{i}"])
+    return out
+
+
+_MODALITY_VAE_LAYERS = ("enc_h1", "enc_h2", "mu", "logvar", "dec_h1",
+                        "dec_h2", "out")
+
+
+def modality_vae_state_from_jax(params: Dict[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """State dict of ``eval.preprocess.ModalityVAE`` from the flax params of
+    the JAX package's per-modality VAE (the same seven layer names)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in _MODALITY_VAE_LAYERS:
+        _dense(out, name, params[name])
+    return out
+
+
+# flax's auto-names inside the shared-latent VAE's submodules, in order.
+_VAE_MATCH_LAYERS = {
+    "enc_x": ("h1", "h2", "mu", "logvar"),
+    "enc_y": ("h1", "h2", "mu", "logvar"),
+    "dec_x": ("h1", "h2", "out"),
+    "dec_y": ("h1", "h2", "out"),
+    "disc": ("h1", "h2", "out"),
+}
+
+
+def vae_match_state_from_jax(params: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """State dict of ``eval.vae.VAEMatchModel`` from the flax params of the
+    JAX package's joint module (``Dense_0`` ... in each submodule)."""
+    out: Dict[str, torch.Tensor] = {}
+    for module, layers in _VAE_MATCH_LAYERS.items():
+        for i, name in enumerate(layers):
+            _dense(out, f"{module}.{name}", params[module][f"Dense_{i}"])
     return out

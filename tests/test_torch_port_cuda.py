@@ -4,8 +4,9 @@ A CUDA kernel has no interpret mode, so these tests need the card: they are
 marked ``cuda`` and skip without one. ``chip_smoke.py`` holds the kernels to
 their plain versions at the main path's shapes; these tests add ragged
 shapes, masks, both band routes of K2, K2 at the non-square feature plans
-of heterogeneous backbones, every cluster size of K1, bitwise
-reruns, the wrappers' refusals, K2 at the base trainer's in-step inputs, a
+of heterogeneous backbones, every cluster size of K1, K1's device route
+above cap 128 (and forced at small caps), bitwise reruns, the wrappers'
+refusals, K2 at the base trainer's in-step inputs, a
 base train step that must not read the device from the host, a
 checkpoint snapshot of the card's tensors that must not alias them, and
 the eval harness's inputs: K2 under a label plan mask, on marginals with
@@ -230,11 +231,49 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         solve(neg_c, g.cpu(), log_p)
     with pytest.raises(ValueError, match="vector of 3"):
         solve(neg_c, torch.zeros(5, device=cuda), log_p)
-    cap = gw_kernel.MAX_CAP + 1
-    c = torch.zeros((1, cap, cap), device=cuda)
-    v = torch.zeros((1, cap), device=cuda)
-    with pytest.raises(ValueError, match="limit"):
-        gw_kernel.gw_solve(c, c, v, v, v, v)
+
+
+@pytest.mark.parametrize("cap,valid", [(129, 100), (129, 129), (200, 150),
+                                       (300, 257)])
+def test_gw_above_the_cluster_cap_takes_the_device_route(cuda, cap, valid):
+    """Above 128 rows a label runs on K1's device route, one launch, and
+    matches the plain version (cap 129 is the boundary)."""
+    x, y, m = _gw_groups(cuda, cap, valid, seed=cap)
+    before = (gw_kernel.COUNTER.count, gw_kernel.DEVICE_COUNTER.count)
+    ker = egw_per_label(x, y, m, m)
+    assert (gw_kernel.COUNTER.count, gw_kernel.DEVICE_COUNTER.count) == (
+        before[0], before[1] + 1)
+    ref = egw_per_label(x, y, m, m, plain=True)
+    _check_gw(ker.coupling, ker.n_iters, ref, valid)
+
+
+@pytest.mark.parametrize("cap,valid", [(1, 1), (3, 2), (64, 50), (96, 80)])
+def test_gw_device_route_matches_plain_at_small_caps(cuda, cap, valid):
+    """The device route taken by hand where the cluster route would run:
+    ragged tiles, a warp's lanes past the last column, padded labels."""
+    x, y, m = _gw_groups(cuda, cap, valid, seed=cap + 1)
+    cx, p, log_p = _prep(x, m)
+    cy, q, log_q = _prep(y, m)
+    t, it, _ = gw_kernel._launch_device(load_library("gw"), cx, cy, log_p,
+                                        log_q, p, q, 5e-3, 2000, 1e-3, 10)
+    _check_gw(t, it, egw_per_label(x, y, m, m, plain=True), valid)
+
+
+def test_gw_device_route_rerun_bitwise_equal(cuda):
+    x, y, m = _gw_groups(cuda, 200, 170)
+    a, b = egw_per_label(x, y, m, m), egw_per_label(x, y, m, m)
+    assert torch.equal(a.coupling, b.coupling)
+    assert torch.equal(a.n_iters, b.n_iters) and torch.equal(a.err, b.err)
+
+
+def test_gw_device_layout_matches_the_library(cuda):
+    gw = load_library("gw")
+    sms = _sm_count(cuda)
+    assert gw.otf_gw_device_smem_bytes() == gw_kernel.gw_device_layout(
+        1, 1, sms).smem_bytes
+    for L, cap in ((1, 1), (2, 129), (4, 363), (1, 960), (100, 200)):
+        assert gw.otf_gw_device_grid(L, cap, sms) == \
+            gw_kernel.gw_device_layout(L, cap, sms).grid
 
 
 @pytest.mark.parametrize("b", [8, 4])

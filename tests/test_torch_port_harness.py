@@ -15,7 +15,8 @@ deterministic predictor in the MLP's place (each package's
 coupling-weighted OLS fit) and holds what the harness computes around it;
 ``test_torch_port_eval.py`` holds ``train_mlp`` itself to JAX on a
 well-conditioned fit, and one run here trains the port's real MLP. The VAE
-family is not ported: selecting it raises.
+family is held to JAX in ``test_torch_port_vae.py``; here its entries run
+through the registry and the CLI.
 """
 
 import pickle
@@ -182,23 +183,36 @@ def test_cli_all_round_trip_matches_jax(screen, tmp_path):
     _close(got["T"], want["T"], PLAN)
 
 
-def test_vae_family_and_latent_loo_raise(screen, tmp_path):
-    """``VAE``/``VAE_label`` stay selectable, as in JAX, and raise when
-    run; so do ``run_loo_latent`` and ``loo --latent-vae``."""
+def test_vae_family_and_latent_loo_raise(screen, tmp_path, monkeypatch):
+    """``VAE``/``VAE_label`` are selectable, as in JAX, and no longer raise
+    (the name is from when they were not ported): through the registry and
+    the CLI's ``all``, and ``loo --latent-vae`` (VAEs cut to 20 steps
+    here; ``test_torch_port_vae.py`` holds the training to JAX)."""
     assert harness.OT_METHOD_MAP.keys() == jax_harness.OT_METHOD_MAP.keys()
     assert harness.OT_METHOD_HYPERPARAMS == jax_harness.OT_METHOD_HYPERPARAMS
+    from otfusion_tpu_torch.eval import preprocess, vae
+
+    monkeypatch.setattr(harness, "OT_METHOD_MAP", {
+        **harness.OT_METHOD_MAP,
+        "VAE_label": lambda *a, **k: vae.train_vae_model(*a, steps=20, **k),
+        "VAE": lambda *a, **k: vae.train_vae_model(*a, use_label=False,
+                                                   steps=20, **k)})
+    train = preprocess.train_modality_vae
+    monkeypatch.setattr(harness, "train_modality_vae",
+                        lambda *a, steps, **k: train(*a, steps=20, **k))
     for method in ("VAE", "VAE_label"):
-        with pytest.raises(NotImplementedError, match="VAE family"):
-            harness.run_all(screen, method, (10, 128, 1e-4), device="cpu")
-    with pytest.raises(NotImplementedError, match="VAE family"):
-        harness.run_loo_latent(screen, "EGW_ott", EPS, device="cpu")
+        res = harness.run_all(screen, method, (10, 4, 1e-4), device="cpu")
+        assert np.isfinite(res["matching_evals"]["mean_foscttm"])
     path = tmp_path / "screen.pkl"
     path.write_bytes(pickle.dumps(screen))
-    for argv in (["all", "VAE", str(path), "10,128,1e-4"],
-                 ["loo", "EGW_ott", str(path), str(EPS), "--latent-vae"]):
-        with pytest.raises(NotImplementedError, match="VAE family"):
-            perturbot_eval.main(["--device", "cpu", "--out-dir",
-                                 str(tmp_path), *argv])
+    for argv, name in (
+            (["all", "VAE", str(path), "10,4,1e-4"],
+             "all_VAE.(10.0, 4, 0.0001).pkl"),
+            (["loo", "EGW_ott", str(path), str(EPS), "--latent-vae",
+              "--latent-dim", "3"], f"loo_vae_EGW_ott.{EPS}.pkl")):
+        assert perturbot_eval.main(["--device", "cpu", "--quiet",
+                                    "--out-dir", str(tmp_path), *argv]) == 0
+        assert (tmp_path / name).exists()
 
 
 def test_cli_device_cuda_without_gpu_raises(screen, tmp_path, monkeypatch):

@@ -2,18 +2,27 @@
 
 ``sinkhorn_layout`` cuts an (n, m) Sinkhorn problem into bands of rows, at
 most one block per SM, and decides whether a band fits in shared memory;
-``gw_layout`` cuts one GW label across a cluster of blocks. The CUDA sources
-compute the same sizes; ``tests/test_torch_port_cuda.py`` holds the two to
-each other on a card.
+``gw_layout`` cuts one GW label across a cluster of blocks (K1's cluster
+route, cap <= 128) and ``gw_device_layout`` cuts L labels of any cap into
+product tiles, rows and column strips over a cooperative grid (K1's device
+route, cap > 128). The CUDA sources compute the same sizes;
+``tests/test_torch_port_cuda.py`` holds the two to each other on a card.
 """
 
 import pytest
 
 from otfusion_tpu_torch.ops.gw_kernel import (
     CLUSTER_SIZES,
+    DEV_BLOCKS_PER_SM,
+    DEV_STRIP,
+    DEV_TILE,
+    DEV_WARPS,
     MAX_CAP,
     SMEM_LIMIT,
+    gw_device_bytes,
+    gw_device_layout,
     gw_layout,
+    gw_route,
 )
 from otfusion_tpu_torch.ops.sinkhorn_kernel import sinkhorn_layout
 
@@ -92,3 +101,57 @@ def test_gw_layout_refuses_above_the_cap_limit():
         gw_layout(MAX_CAP + 1, 8)
     with pytest.raises(ValueError, match="cluster size"):
         gw_layout(64, 3)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("L,cap", [(1, 1), (2, 129), (4, 363), (1, 849),
+                                   (1, 960), (10, 96), (37, 200),
+                                   (1, 5000)])
+def test_gw_device_layout_covers_every_row_and_column(L, cap, sms):
+    """Product tiles cover every (row, column) of a label, column strips
+    every column; the grid is co-resident (at most DEV_BLOCKS_PER_SM a
+    SM), no larger than the largest phase's work, and at least one block;
+    a block's shared memory is far under the limit."""
+    lay = gw_device_layout(L, cap, sms)
+    assert (lay.tiles - 1) * DEV_TILE < cap <= lay.tiles * DEV_TILE
+    assert (lay.strips - 1) * DEV_STRIP < cap <= lay.strips * DEV_STRIP
+    most = max(L * lay.tiles ** 2, -(-L * cap // DEV_WARPS), L * lay.strips)
+    assert 1 <= lay.grid == min(sms * DEV_BLOCKS_PER_SM, most)
+    assert lay.smem_bytes <= SMEM_LIMIT // 8
+
+
+@pytest.mark.parametrize("L,cap,sms,expected", [
+    (1, 849, 132, (14, 27, 196)),     # the harness screen as one label
+    (2, 129, 132, (3, 5, 33)),        # the route's boundary
+    (4, 363, 132, (6, 12, 182)),
+    (1, 960, 132, (15, 30, 225)),
+    (100, 200, 132, (4, 7, 264)),     # capped at 2 blocks a SM
+])
+def test_gw_device_layout_sizes(L, cap, sms, expected):
+    lay = gw_device_layout(L, cap, sms)
+    assert (lay.tiles, lay.strips, lay.grid) == expected
+    assert lay.smem_bytes == 10752   # 2 x 16 x 68 + 2 x 8 x 32 floats
+
+
+@pytest.mark.parametrize("cap,route", [(1, "cluster"), (128, "cluster"),
+                                       (129, "device"), (960, "device")])
+def test_gw_route_by_cap(cap, route):
+    """The cluster route up to its limit of 128 rows, the device route
+    from 129."""
+    assert gw_route(cap) == route
+    if route == "cluster":
+        gw_layout(cap, 8 if cap > 64 else 4)
+    else:
+        with pytest.raises(ValueError, match="limit"):
+            gw_layout(cap, 8)
+        gw_device_layout(1, cap, 132)
+
+
+def test_gw_device_bytes_and_refusals():
+    # the plan, 4 work matrices, 8 vectors, the state and the results
+    assert gw_device_bytes(1, 960) == 4 * (5 * 960 ** 2 + 8 * 960 + 2) \
+        + 4 * 5 + 8
+    with pytest.raises(ValueError):
+        gw_device_layout(0, 10, 132)
+    with pytest.raises(ValueError):
+        gw_device_layout(1, 10, 0)
