@@ -34,6 +34,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
          ``train_unimodal --grad-accum 2`` (no kernel), and
          ``train_t1_t2_ot`` on the cohort's folders linked under the T1/T2
          class names;
+ 6b. checks the PNGs the flagship and unimodal runs wrote
+     (``confusion_matrix.png`` 1000 x 800, ``tsne_best_val.png`` 800 x
+     600), runs the t-SNE on the card and on the CPU at the flagship's
+     validation logits (38 x 2) and at 512 x 2048 features in two clusters
+     (P within 1e-6, the PCA start and the first 10 iterations alike, at
+     most 21 host reads on the card under CUDA's sync debug mode; at 512
+     also the same iteration count and KL within 5 %), runs
+     ``preprocess_volume`` of a 256 x 256 x 176 volume to 128^3 on the card
+     against the CPU (1e-5; median ms of 20), drives every subcommand of
+     ``data_tools``, ``harvard30k``, ``aggregate_results`` and
+     ``generate_split`` on fixtures it writes (a DICOM series, two
+     Harvard-30k records in a zip, a run tree, a patient-ID list) and reads
+     each output back, and checks that none of matplotlib, scikit-learn,
+     PIL, pydicom or JAX is loaded (``phase_artifacts``);
   7. serves the flagship's run through ``cli/predict.py`` (B16, all 192
      subjects) with BatchNorm folded and unfolded, in bf16 (the run's
      dtype) and in float32 (TF32 off): in float32 the same predictions and
@@ -604,7 +618,7 @@ def phase_flagship(data, work):
           f"Tv mass {float(tv.sum())} is not 1 +- 1e-3")
     _log_checkpoints("flagship", rows, result)
     log(f"[flagship] phase {time.perf_counter() - t0:.2f} s")
-    return launches, _final_eval(out, data, result)
+    return launches, _final_eval(out, data, result), result["final_logits"]
 
 
 def _final_eval(out, data, result):
@@ -2222,6 +2236,23 @@ def _gamma_features(mgamma, label_csv, n_cases):
     return torch.cat(f_all), torch.cat(o_all), torch.cat(y_all)
 
 
+def _gw_loss(x, y, xm, ym, t):
+    """Each label's GW loss sum_ijkl (Cx_ik - Cy_jl)^2 T_ij T_kl of plan
+    ``t`` on the costs ``_prep`` builds, in float64: two plans of one
+    problem that part by a permutation at an equal loss are a tie."""
+    import torch
+
+    from otfusion_tpu_torch.ops.gromov import _prep
+
+    cx, cy = (_prep(a, m)[0].double() for a, m in ((x, xm), (y, ym)))
+    t = t.double()
+    a, b = t.sum(2), t.sum(1)
+    loss = (torch.einsum("li,lij,lj->l", a, cx * cx, a)
+            + torch.einsum("li,lij,lj->l", b, cy * cy, b)
+            - 2 * torch.einsum("lij,lik,lkm,ljm->l", t, cx, t, cy))
+    return [float(v) for v in loss]
+
+
 def _gamma_kernels(mgamma, label_csv):
     """K2 at the train step's input, the (6144, 2048) FOT cost from a
     4-row EGWL plan on real encoder features; EGWL on the card against the
@@ -2284,7 +2315,9 @@ def _gamma_kernels(mgamma, label_csv):
     pad = float((ker.coupling * ~(xm[:, :, None] & ym[:, None, :])).abs()
                 .sum())
     log(f"[gamma] K1 coupling: n_iters kernel {it_k} plain {it_r}; max|dT| "
-        f"{diff:.3e} = {diff / t_max:.3e} max T; mass on padding {pad}")
+        f"{diff:.3e} = {diff / t_max:.3e} max T; mass on padding {pad}; "
+        f"GW loss a label kernel {_gw_loss(x, yg, xm, ym, ker.coupling)} "
+        f"plain {_gw_loss(x, yg, xm, ym, ref.coupling)}")
     check(it_k == it_r, "K1 at the gamma coupling: n_iters differ")
     check(diff <= 1e-4 * t_max, "K1 at the gamma coupling: plans differ by "
           "more than 1e-4 max T")
@@ -2505,6 +2538,329 @@ def phase_gamma(work):
             kernels, summary)
 
 
+# Phase 12: the run's PNG artifacts, t-SNE on the card, device
+# preprocessing and the data tools.
+ARTIFACT_SIZES = {"confusion_matrix.png": (800, 1000),
+                  "tsne_best_val.png": (600, 800)}
+TSNE_SEED = 0
+TSNE_ROWS, TSNE_WIDTH = 512, 2048
+RAW_VOLUME, PREPROCESSED = (256, 256, 176), (128, 128, 128)
+HOST_ONLY = ("matplotlib", "sklearn", "PIL", "pydicom", "jax")
+
+
+def _tsne_card_and_cpu(tag, x, whole_run):
+    """t-SNE of ``x`` (a CPU tensor) on the card and on the CPU: P within
+    1e-6, the PCA start within 1e-6 of its largest entry, the first 10
+    iterations within 1e-9 of the embedding's largest entry, at most 21 host
+    reads on the card (counted under CUDA's sync debug mode, the input
+    already on the card); with ``whole_run`` also the same iteration count
+    and the card's final KL within 5 % of the CPU's. Returns the summary."""
+    import warnings
+
+    import torch
+
+    from otfusion_tpu_torch.utils import tsne
+
+    n = x.shape[0]
+    perplexity = tsne.default_perplexity(n)
+    k = tsne.n_neighbors(n, perplexity)
+    lr = tsne.learning_rate(n)
+    p, start, steps = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev)
+        p[dev] = tsne.joint_probabilities_nn(*tsne.knn_sqdist(xd, k),
+                                             perplexity)
+        start[dev] = tsne.pca_init(xd)
+        steps[dev] = tsne._gradient_descent(
+            start["cpu"].to(dev, torch.float64),
+            p[dev] * tsne.EARLY_EXAGGERATION, 0, 10, 0.5, lr, 250)[0].cpu()
+    p_err = float((p["cuda"].cpu() - p["cpu"]).abs().max())
+    start_err = float((start["cuda"].cpu() - start["cpu"]).abs().max()
+                      / start["cpu"].abs().max())
+    step_err = float((steps["cuda"] - steps["cpu"]).abs().max()
+                     / steps["cpu"].abs().max())
+    x_card = x.cuda()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            card = tsne.tsne(x_card, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        card_s = time.perf_counter() - t0
+    # (setting the mode warns once that it is a prototype: not a read)
+    reads = sum(str(w.message).startswith("called a synchronizing")
+                for w in caught)
+    t0 = time.perf_counter()
+    cpu = tsne.tsne(x, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    kl_gap = abs(card.kl_divergence - cpu.kl_divergence) / cpu.kl_divergence
+    # how far float32 rounding of the start moves a whole run on the CPU
+    nudged = start["cpu"] * (1.0 + 1e-7 * torch.randn(
+        start["cpu"].shape, generator=torch.Generator().manual_seed(1)))
+    moved = tsne.tsne(x, device="cpu", init=nudged)
+    out = {"n": n, "d": int(x.shape[1]), "perplexity": perplexity,
+           "p_max_abs_err": p_err, "start_rel_err": start_err,
+           "step10_rel_err": step_err, "n_iter": [card.n_iter, cpu.n_iter],
+           "kl": [card.kl_divergence, cpu.kl_divergence],
+           "kl_rel_gap": kl_gap, "cpu_start_1e-7_apart": {
+               "n_iter": moved.n_iter, "kl": moved.kl_divergence},
+           "host_reads": reads,
+           "checks": card.checks, "card_s": card_s, "cpu_s": cpu_s}
+    log(f"[{tag}] {json.dumps(out)}")
+    check(p_err <= 1e-6, f"[{tag}] P on the card {p_err:.3e} from the CPU's")
+    check(start_err <= 1e-6, f"[{tag}] PCA start {start_err:.3e} apart")
+    check(step_err <= 1e-9, f"[{tag}] 10 iterations {step_err:.3e} apart")
+    check(reads <= 21, f"[{tag}] {reads} host reads")
+    check(bool(card.embedding.shape == (n, 2)
+               and torch.isfinite(torch.from_numpy(card.embedding)).all()),
+          f"[{tag}] embedding not finite or of shape "
+          f"{card.embedding.shape}")
+    if whole_run:
+        check(card.n_iter == cpu.n_iter, f"[{tag}] iterations "
+              f"{card.n_iter} on the card, {cpu.n_iter} on the CPU")
+        check(kl_gap <= 0.05, f"[{tag}] KL {card.kl_divergence} on the "
+              f"card, {cpu.kl_divergence} on the CPU")
+    return out
+
+
+def _dicom_element(group, elem, vr, value):
+    """One explicit-VR little-endian data element."""
+    import struct
+
+    head = struct.pack("<HH", group, elem)
+    if vr in (b"OB", b"OW"):
+        return head + vr + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + vr + struct.pack("<H", len(value)) + value
+
+
+def _write_dicom_series(leaf, volume):
+    """An uncompressed explicit-VR little-endian Part-10 file per slice of
+    ``volume`` (int16), positioned along z in reverse file order."""
+    import struct
+
+    def text(s):
+        b = s.encode()
+        return b + b" " if len(b) % 2 else b
+
+    leaf.mkdir(parents=True)
+    n, rows, cols = volume.shape
+    for i in range(n):
+        body = b"".join([
+            _dicom_element(0x0010, 0x0020, b"LO", text("123_S_4567")),
+            _dicom_element(0x0020, 0x0013, b"IS", text(str(i + 1))),
+            _dicom_element(0x0020, 0x0032, b"DS",
+                           text(f"0.0\\0.0\\{float(n - 1 - i):.1f}")),
+            _dicom_element(0x0028, 0x0002, b"US", struct.pack("<H", 1)),
+            _dicom_element(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+            _dicom_element(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+            _dicom_element(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+            _dicom_element(0x0028, 0x0103, b"US", struct.pack("<H", 1)),
+            _dicom_element(0x7FE0, 0x0010, b"OW",
+                           volume[n - 1 - i].astype("<i2").tobytes())])
+        meta = _dicom_element(0x0002, 0x0010, b"UI",
+                              text("1.2.840.10008.1.2.1"))
+        (leaf / f"s{i:03d}.dcm").write_bytes(b"\x00" * 128 + b"DICM" + meta
+                                             + body)
+
+
+def _data_tools(work):
+    """Every subcommand of the four data CLIs on fixtures written here;
+    each output exists and reads back. Returns {command: seconds}."""
+    import contextlib
+    import io
+    import zipfile
+
+    import numpy as np
+
+    from otfusion_tpu_torch.cli import (
+        aggregate_results,
+        data_tools,
+        generate_split,
+        harvard30k,
+    )
+    from otfusion_tpu_torch.data.nifti_io import read_nifti
+    from otfusion_tpu_torch.data.png_io import read_png
+    from otfusion_tpu_torch.data.synthetic import make_synthetic_adni
+    from otfusion_tpu_torch.utils.reporting import CSV_COLUMNS, ResultsWriter
+
+    root = work / "tools"
+    rng = np.random.default_rng(TSNE_SEED)
+    seconds = {}
+
+    def run(tag, main, argv):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        seconds[tag] = time.perf_counter() - t0
+        return buf.getvalue()
+
+    tree = make_synthetic_adni(root / "adni", n_per_class=3, shape=(8, 8, 8))
+    (tree / "AD_MRI_130_FIN" / "notes.txt").write_text("x")
+    run("sizes", data_tools.main, ["sizes", "--root", str(tree), "--output",
+                                   str(root / "sizes.txt")])
+    check((root / "sizes.txt").read_text().count("(8, 8, 8)") == 12,
+          "[tools] sizes did not list 12 volumes of 8^3")
+    out = run("verify", data_tools.main, ["verify", "--root", str(tree),
+                                          "--pair-with", str(tree)])
+    check("paired: 6" in out, f"[tools] verify printed {out!r}")
+    (root / "ids.txt").write_text("001_S_4000\n")
+    out = run("relocate", data_tools.main, [
+        "relocate", "--source", str(tree / "AD_MRI_130_FIN"), "--dest",
+        str(root / "moved"), "--id-file", str(root / "ids.txt"), "--apply"])
+    check(len(list((root / "moved").rglob("*.nii*"))) == 1,
+          f"[tools] relocate moved nothing: {out!r}")
+    run("cleanup", data_tools.main, ["cleanup", "--root", str(tree),
+                                     "--apply"])
+    check(not (tree / "AD_MRI_130_FIN" / "notes.txt").exists(),
+          "[tools] cleanup left a non-NIfTI file")
+    volume = rng.integers(-1000, 3000, (12, 20, 16)).astype(np.int16)
+    _write_dicom_series(root / "dicom" / "123_S_4567" / "MPRAGE" / "d" / "I1",
+                        volume)
+    out = run("convert", data_tools.main, [
+        "convert", "--native", "--input", str(root / "dicom"), "--output",
+        str(root / "nifti")])
+    produced = list((root / "nifti").rglob("*.nii.gz"))
+    check(len(produced) == 1 and "Converted 1 DICOM series" in out,
+          f"[tools] convert wrote {produced}: {out!r}")
+    check(bool(np.array_equal(read_nifti(produced[0]), volume)),
+          "[tools] the converted NIfTI does not read back as the series")
+
+    records = root / "records"
+    records.mkdir()
+    for name, shape, subtype in (("rec_a", (768, 768), "pdr"),
+                                 ("rec_b", (664, 512), "mild.npdr")):
+        np.savez(records / f"{name}.npz",
+                 slo_fundus=rng.integers(0, 256, shape, dtype=np.uint8),
+                 dr_subtype=np.asarray(subtype),
+                 oct_bscans=rng.normal(size=(16, 20, 24)).astype(np.float32))
+    (root / "release").mkdir()
+    with zipfile.ZipFile(root / "release" / "part0.zip", "w") as zf:
+        for name in ("rec_a.npz", "rec_b.npz"):
+            zf.write(records / name, f"Training/p0/{name}")
+        zf.writestr("Training/p0/preview.jpg", b"x")
+    run("merge-zips", harvard30k.main, [
+        "merge-zips", "--work-dir", str(root / "release"), "--output-dir",
+        str(root / "merged")])
+    source = root / "merged" / "merged_training" / "p0"
+    check(sorted(p.name for p in source.iterdir())
+          == ["rec_a.npz", "rec_b.npz"], "[tools] merge-zips output")
+    run("extract-fundus", harvard30k.main, [
+        "extract-fundus", "--source", str(source), "--fundus-dir",
+        str(root / "fundus"), "--labels-file", str(root / "fundus.txt")])
+    check((root / "fundus.txt").read_text().split("\n")[:2]
+          == ["rec_a_fundus.png 1", "rec_b_fundus.png 0"],
+          "[tools] fundus label list")
+    for name in ("rec_a", "rec_b"):
+        check(read_png(root / "fundus" / f"{name}_fundus.png").shape
+              == (448, 448, 3), f"[tools] {name}_fundus.png")
+    run("oct-to-nii", harvard30k.main, [
+        "oct-to-nii", "--input", str(source), "--output", str(root / "oct")])
+    with zipfile.ZipFile(root / "oct" / "rec_a.zip") as zf:
+        zf.extract("rec_a.nii", root / "unzipped")
+    check(bool(np.array_equal(read_nifti(root / "unzipped" / "rec_a.nii"),
+                              np.load(records / "rec_a.npz")["oct_bscans"])),
+          "[tools] oct-to-nii does not read back")
+
+    metrics = {"precision": 0.5, "recall": 0.75, "f1": 0.6,
+               "specificity": 0.25}
+    for setup, style in (("mri_depth18_balanced", "unimodal"),
+                         ("mdepth101_drop0.3_all_with_pretrain_mri_pet_attn",
+                          "fusion")):
+        run_dir = root / "runs" / setup
+        run_dir.mkdir(parents=True)
+        writer = ResultsWriter(run_dir / "results.txt", "title", {},
+                               style=style)
+        writer.epoch_row(1, 0.7, 0.5, 0.69, 0.5, metrics)
+        writer.summary(0.69, {"epoch": 1, "val_acc": 0.5, **metrics},
+                       run_dir / "best_model")
+    run("aggregate", aggregate_results.main, [
+        "--results-dir", str(root / "runs"), "--output",
+        str(root / "best.csv")])
+    with open(root / "best.csv") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 2 and list(rows[0]) == CSV_COLUMNS,
+          f"[tools] best.csv has {len(rows)} rows")
+    with zipfile.ZipFile(root / "best.xlsx") as zf:
+        sheet = zf.read("xl/worksheets/sheet1.xml").decode()
+    check(sheet.count("<row ") == 3 and "mri_pet" in sheet,
+          "[tools] best.xlsx does not hold the header and two rows")
+
+    ids = {"AD_MRI_130_FIN": [f"{i:03d}_S_{4000 + i}" for i in range(20)],
+           "CN_MRI_229_FIN": [f"{i:03d}_S_{5000 + i}" for i in range(15)]}
+    (root / "patients.json").write_text(json.dumps(ids))
+    run("generate_split", generate_split.main, [
+        "--input", str(root / "patients.json"), "--output",
+        str(root / "split.json")])
+    split = json.loads((root / "split.json").read_text())
+    for cls, all_ids in ids.items():
+        check(sorted(split["train"][cls] + split["val"][cls])
+              == sorted(all_ids) and len(split["val"][cls])
+              == int(len(all_ids) * 0.2), f"[tools] split of {cls}")
+    shutil.rmtree(root)
+    return seconds
+
+
+def phase_artifacts(work, flagship_logits):
+    """The trainers' PNGs, t-SNE on the card against the CPU, device
+    preprocessing against the CPU, and the data tools; then no host-only
+    library is loaded. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from otfusion_tpu_torch.cli.bench_kernels import time_ms
+    from otfusion_tpu_torch.data.png_io import read_png
+    from otfusion_tpu_torch.data.preprocess import preprocess_volume
+
+    t0 = time.perf_counter()
+    for run in ("flagship", "unimodal"):
+        for name, shape in ARTIFACT_SIZES.items():
+            image = read_png(work / run / name)
+            check(image.shape == shape + (3,), f"[artifacts] {run}/{name} "
+                  f"is {image.shape}, want {shape}")
+            check(int(image.min()) < 64 and int(image.max()) == 255,
+                  f"[artifacts] {run}/{name} is blank")
+    log(f"[artifacts] flagship and unimodal PNGs at {ARTIFACT_SIZES}")
+
+    # At 38 points the exaggerated phase (learning rate 50) amplifies
+    # rounding into other minima, as the CPU's own run from a start 1e-7
+    # apart shows (logged), so whole runs are compared at 512 points only.
+    logits = torch.from_numpy(np.asarray(flagship_logits, np.float32))
+    summary = {"tsne_logits": _tsne_card_and_cpu("artifacts-tsne", logits,
+                                                 whole_run=False)}
+    rng = np.random.default_rng(TSNE_SEED)
+    feats = rng.normal(size=(TSNE_ROWS, TSNE_WIDTH)).astype(np.float32)
+    feats[: TSNE_ROWS // 2] += 0.5   # two clusters, centres 22.6 apart
+    summary["tsne_features"] = _tsne_card_and_cpu(
+        "artifacts-tsne", torch.from_numpy(feats), whole_run=True)
+
+    raw = rng.gamma(2.0, 150.0, RAW_VOLUME).astype(np.float32)
+    card = torch.from_numpy(raw).cuda()
+    got = preprocess_volume(card, PREPROCESSED).cpu()
+    want = preprocess_volume(torch.from_numpy(raw), PREPROCESSED)
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: preprocess_volume(card, PREPROCESSED), 20)
+    summary["preprocess"] = {"shape": list(got.shape), "max_abs_err": err,
+                             "card_ms": ms}
+    log(f"[artifacts-preprocess] {RAW_VOLUME} -> {PREPROCESSED}: "
+        f"{json.dumps(summary['preprocess'])}")
+    check(tuple(got.shape) == PREPROCESSED + (1,),
+          f"[artifacts-preprocess] shape {tuple(got.shape)}")
+    check(err <= 1e-5, f"[artifacts-preprocess] the card {err:.3e} from the "
+          "CPU")
+
+    summary["tools_s"] = _data_tools(work)
+    log(f"[artifacts-tools] seconds {json.dumps(summary['tools_s'])}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in HOST_ONLY)
+    check(not loaded, f"[artifacts] host-only libraries loaded: {loaded}")
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[artifacts] phase {summary['seconds']:.2f} s")
+    return summary
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2542,9 +2898,11 @@ def main(argv=None) -> None:
             f"({time.perf_counter() - t1:.2f} s)")
         torch.cuda.reset_peak_memory_stats()
         runs = {}
-        runs["flagship"], final_eval = phase_flagship(data, work)
+        runs["flagship"], final_eval, flagship_logits = phase_flagship(
+            data, work)
         runs["base"], base = phase_base(data, work)
         runs.update(phase_small(data, work))
+        artifacts = phase_artifacts(work, flagship_logits)
         log(f"[trainers] peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         serve = phase_serve(data, work, final_eval)
@@ -2588,6 +2946,7 @@ def main(argv=None) -> None:
     log("[k1-device] " + json.dumps(k1d_summary))
     log("[vae] " + json.dumps(vae_summary))
     log("[gamma] " + json.dumps(gamma))
+    log("[artifacts] " + json.dumps(artifacts))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "launches_per_solve")

@@ -20,7 +20,11 @@ so these are the port's own:
     antialias=True)`` on a CPU uint8 tensor implements that filter; its
     fixed-point rounding matches PIL's bit for bit at 512 -> 384, 300 ->
     384 and integer ratios, and lies at most one grey level from it
-    elsewhere (97 -> 32, 2000 -> 384).
+    elsewhere (97 -> 32, 2000 -> 384);
+  * ``resize_lanczos_uint8`` is PIL's ``LANCZOS`` resize of a uint8
+    greyscale (mode ``L``) or RGB image, bit for bit: PIL's
+    ``ImagingResample`` written out in numpy integer arithmetic (PyTorch's
+    ``interpolate`` has no Lanczos mode).
 
 Rows whose filter reads the reconstructed left neighbour non-linearly
 (Average, Paeth) are decoded along anti-diagonals: pixel (r, x) depends on
@@ -30,6 +34,7 @@ vectorised step.
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from pathlib import Path
@@ -210,3 +215,75 @@ def resize_bilinear_uint8(image: np.ndarray, size: int) -> np.ndarray:
                         size=(size, size), mode="bilinear",
                         align_corners=False, antialias=True)
     return out[0].permute(1, 2, 0).contiguous().numpy()
+
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _lanczos(x: float) -> float:
+    """PIL's Lanczos filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+    return sinc(x) * sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` with support 3 and
+    ``normalize_coeffs_8bpc``: each output's first input, and its weights
+    (out_size, ksize) in 22-bit fixed point (int64, zero past its run)."""
+    scale = filterscale = in_size / out_size
+    filterscale = max(filterscale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) / filterscale)
+             for x in range(xmax)]
+        total = 0.0
+        for w in k:
+            total += w
+        k = [w / total if total != 0.0 else w for w in k]
+        first[xx] = xmin
+        weights[xx, :xmax] = [int(-0.5 + w * (1 << _PRECISION_BITS)) if w < 0
+                              else int(0.5 + w * (1 << _PRECISION_BITS))
+                              for w in k]
+    return first, weights
+
+
+def _resample_axis(image: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of PIL's resample along ``axis`` of a uint8 array:
+    fixed-point sums, rounded at half, clipped to uint8."""
+    first, weights = _lanczos_coeffs(image.shape[axis], out_size)
+    moved = np.moveaxis(image, axis, 0).astype(np.int64)
+    taps = np.minimum(first[:, None] + np.arange(weights.shape[1]),
+                      image.shape[axis] - 1)
+    gathered = moved[taps]      # (out, ksize, ...)
+    w = weights.reshape(weights.shape + (1,) * (moved.ndim - 1))
+    acc = (1 << (_PRECISION_BITS - 1)) + (gathered * w).sum(axis=1)
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos_uint8(image: np.ndarray, size: int) -> np.ndarray:
+    """PIL's ``Image.fromarray(image).resize((size, size), LANCZOS)`` of a
+    uint8 (H, W) greyscale or (H, W, 3) RGB image, bit for bit: the
+    horizontal pass first, then the vertical, each only where the size
+    changes; an image already of that size comes back as a copy."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or not (
+            image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError("resize_lanczos_uint8 takes uint8 (H, W) or "
+                         f"(H, W, 3) images, got {image.dtype} {image.shape}")
+    out = np.array(image, copy=True)
+    if out.shape[1] != size:
+        out = _resample_axis(out, size, 1)
+    if out.shape[0] != size:
+        out = _resample_axis(out, size, 0)
+    return out

@@ -9,6 +9,9 @@ formats the reference consumes.
   3. path-entry splits ``{train: [{mri_path, pet_path, label}], val: [...]}``
      (3D_resnet.py:856-872; emitted by the flagship trainer,
      attn:1135-1165).
+
+Plus ``generate_patient_split``, the per-class shuffled patient split of
+``cli/generate_split.py``.
 """
 
 from __future__ import annotations
@@ -156,3 +159,23 @@ def save_path_split(
         )
     with open(path, "w") as f:
         json.dump(entries, f, indent=2)
+
+
+def generate_patient_split(
+    patient_ids_by_class: Dict[str, List[str]],
+    val_fraction: float,
+    seed: int,
+) -> Dict[str, Dict[str, List[str]]]:
+    """Per-class sort and shuffle; the first ``int(n * val_fraction)``
+    shuffled ids go to val, the rest to train. It seeds the stdlib's
+    module-level ``random``, as the JAX function does, so the two give the
+    same split."""
+    random.seed(seed)
+    out = {"train": {}, "val": {}}
+    for class_dir, ids in patient_ids_by_class.items():
+        ids = sorted(ids)
+        random.shuffle(ids)
+        n_val = int(len(ids) * val_fraction)
+        out["val"][class_dir] = ids[:n_val]
+        out["train"][class_dir] = ids[n_val:]
+    return out

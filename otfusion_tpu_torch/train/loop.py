@@ -26,8 +26,11 @@ epoch, best loss and summary), appending to ``results.txt`` and
 before the optimiser is built; ``profile_dir`` takes a ``torch.profiler``
 trace of epoch 1's train phase.
 
-The confusion-matrix and t-SNE PNGs of the JAX loops are not written yet
-(ROADMAP.md, open item: the PNG artifacts).
+After the best model's final evaluation both loops write the JAX loops'
+``confusion_matrix.png`` and ``tsne_best_val.png`` (``utils.plotting``):
+the fusion loop the t-SNE of the validation logits for ``per_epoch_attn``
+only, the unimodal loop that of the pooled features; the t-SNE runs on the
+run's device.
 """
 
 from __future__ import annotations
@@ -73,6 +76,10 @@ from otfusion_tpu_torch.utils.checkpoint import (
     restore_backbone,
     restore_checkpoint,
     save_checkpoint,
+)
+from otfusion_tpu_torch.utils.plotting import (
+    save_confusion_matrix_png,
+    save_tsne_png,
 )
 from otfusion_tpu_torch.utils.reporting import ResultsWriter
 
@@ -541,6 +548,13 @@ def run_fusion_training(
     final_tv = compute_tv() if needs_tv else None
     _, _, preds, targets, logits = _run_eval_epoch(
         eval_step, val_loader, device, (final_tv,), collect="logits")
+    save_confusion_matrix_png(targets, preds, class_names,
+                              os.path.join(save_path, "confusion_matrix.png"))
+    if (variant == "per_epoch_attn" and logits is not None
+            and len(logits) > 3):
+        save_tsne_png(logits, targets,
+                      os.path.join(save_path, "tsne_best_val.png"),
+                      device=device)
     if needs_tv:
         _save_tv(save_path, final_tv)
 
@@ -586,9 +600,8 @@ def run_unimodal_training(
     no LR schedule; per epoch train, eval, ``results.txt`` and
     ``metrics.jsonl`` rows, best and latest checkpoints (``resume``
     continues from ``latest/``). After the last epoch the best weights are
-    restored and evaluated once more, with their pooled features. The
-    reference's confusion-matrix and t-SNE PNGs are not written yet
-    (ROADMAP.md, open item: the PNG artifacts)."""
+    restored and evaluated once more, with their pooled features, and the
+    confusion-matrix and t-SNE PNGs are written."""
     if not len(val_idx) or not len(train_idx):
         raise ValueError(
             f"empty split: {len(train_idx)} train / {len(val_idx)} val "
@@ -695,6 +708,13 @@ def run_unimodal_training(
     restore_checkpoint(model_dir, model)
     _, _, preds, targets, feats = _run_eval_epoch(
         eval_step, val_loader, device, collect="features")
+    save_confusion_matrix_png(targets, preds, class_names,
+                              os.path.join(save_path, "confusion_matrix.png"))
+    if feats is not None and len(feats) > 3:
+        save_tsne_png(feats, targets,
+                      os.path.join(save_path, "tsne_best_val.png"),
+                      title="t-SNE of Validation Predictions (Best 3D ResNet)",
+                      device=device)
     return {
         "best_val_loss": best_val_loss,
         "best_summary": best_summary,
